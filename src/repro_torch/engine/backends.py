@@ -1,0 +1,278 @@
+"""Storage backends: the physical layer behind the :class:`LayoutEngine`.
+
+A backend owns the *physical* side of the online loop — which layouts are
+registered, which one is currently materialized and serving queries, and what
+a query actually costs against the materialized table.  The decision layer
+(policies + D-UMTS) only ever sees metadata-level cost estimates, mirroring
+the paper's design where candidate exploration never touches row data.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Protocol, Sequence, runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch.core import layouts as L
+from repro_torch.core import workload as wl
+
+from . import compute
+from .state_matrix import StateMatrix
+
+
+@runtime_checkable
+class StorageBackend(Protocol):
+    """Physical layer contract consumed by :class:`LayoutEngine`.
+
+    Lifecycle of a state id under this protocol:
+
+    1. :meth:`register` — a policy admits a candidate layout; the backend
+       tracks it but does **not** materialize anything (registration is
+       metadata-only and therefore cheap).
+    2. :meth:`estimate_costs` — per-query, the engine asks for service-cost
+       estimates of many registered states in one batched call.  Estimates
+       use each layout's *estimated* metadata (``Layout.meta``), never the
+       table.
+    3. :meth:`prepare` — the engine announces a reorganization decision.  A
+       backend may start background materialization here so the Δ-delay
+       between decision and swap overlaps with useful work.
+    4. :meth:`activate` — the swap takes effect: the state becomes the
+       serving layout (materializing it now if :meth:`prepare` did not).
+    5. :meth:`serve` — charge one query against the *currently serving*
+       materialized layout, returning the fraction of records accessed.
+    6. :meth:`deregister` — the policy evicted the state.  Must be a no-op
+       for unknown ids; must not disturb the serving layout even if the
+       serving state itself is deregistered (the physical table survives
+       until the next swap).
+    """
+
+    def register(self, layout: L.Layout) -> None: ...
+
+    def deregister(self, state_id: int) -> None: ...
+
+    def has(self, state_id: int) -> bool: ...
+
+    def get(self, state_id: int) -> L.Layout: ...
+
+    def estimate_costs(self, state_ids: Sequence[int],
+                       query: wl.Query) -> Dict[int, float]: ...
+
+    def prepare(self, state_id: int) -> None: ...
+
+    def activate(self, state_id: int) -> None: ...
+
+    @property
+    def serving_state(self) -> Optional[int]: ...
+
+    def serve(self, query: wl.Query) -> float: ...
+
+
+class _RegistryMixin:
+    """Shared metadata registry + batched estimation over a StateMatrix.
+
+    The registry mirrors every registered layout's zone maps into a packed
+    :class:`StateMatrix` on ``device`` (O(P*C) per register / deregister),
+    so per-query estimation is one scan over persistent tensors.
+    """
+
+    _layouts: Dict[int, L.Layout]
+
+    def _init_registry(self, device: torch.device) -> None:
+        self._layouts = {}
+        self._matrix = StateMatrix(device)
+        self._primed: Optional[tuple] = None
+        self._primed_idx: Optional[tuple] = None
+
+    def prime_estimates(self, query: wl.Query, version: int,
+                        costs: np.ndarray) -> None:
+        """Install precomputed per-slot costs for one upcoming query.
+
+        ``costs`` is a full per-slot vector computed elsewhere (a fleet's
+        fused pass), ``version`` the :attr:`StateMatrix.version` it was
+        computed against.  :meth:`estimate_costs` consumes it only when the
+        *same* query object arrives while the plane is still at that
+        version — any state churn in between bumps the version and falls
+        back to the exact per-tenant path, so priming can never change
+        results.
+        """
+        self._primed = (query, version, costs)
+
+    def _primed_costs(self, query: wl.Query) -> Optional[np.ndarray]:
+        primed = self._primed
+        if (primed is not None and primed[0] is query
+                and primed[1] == self._matrix.version):
+            return primed[2]
+        return None
+
+    def _primed_dict(self, costs: np.ndarray,
+                     state_ids: Sequence[int]) -> Dict[int, float]:
+        """id -> cost dict off a primed per-slot vector, vectorized.
+
+        The slot-index gather is cached on (ids object, plane version);
+        ``ndarray.tolist`` yields the same Python floats
+        ``float(costs[slot])`` would.
+        """
+        m = self._matrix
+        cache = self._primed_idx
+        if (cache is not None and cache[0] is state_ids
+                and cache[1] == m.version):
+            ids, idx = cache[2], cache[3]
+        else:
+            ids = list(state_ids)
+            idx = np.fromiter((m.slot(s) for s in ids), dtype=np.intp,
+                              count=len(ids))
+            # Holding a reference to state_ids keeps its id() from being
+            # recycled while the cache entry is alive.
+            self._primed_idx = (state_ids, m.version, ids, idx)
+        return dict(zip(ids, costs.take(idx).tolist()))
+
+    def register(self, layout: L.Layout) -> None:
+        self._layouts[layout.layout_id] = layout
+        self._matrix.register(layout.layout_id, layout.meta)
+
+    def deregister(self, state_id: int) -> None:
+        self._layouts.pop(state_id, None)
+        self._matrix.deregister(state_id)
+
+    def has(self, state_id: int) -> bool:
+        return state_id in self._layouts
+
+    def get(self, state_id: int) -> L.Layout:
+        return self._layouts[state_id]
+
+    @property
+    def states(self) -> List[int]:
+        return sorted(self._layouts)
+
+    @property
+    def state_matrix(self) -> StateMatrix:
+        """The packed metadata plane."""
+        return self._matrix
+
+
+class InMemoryBackend(_RegistryMixin):
+    """Backend over a table held as one (N, C) float64 tensor on a device.
+
+    Materialization computes exact zone maps over the table on its device;
+    serving charges the metadata-derived fraction of records accessed.
+    The serving layout's *exact* (materialized) zone maps live in the packed
+    plane as a shadow state under the reserved id ``SERVING_SHADOW`` (-1),
+    so each ``estimate_costs`` call fuses the serve score into the same
+    scan and :meth:`serve` is usually a memo lookup — still bit-identical
+    to ``eval_cost`` on the serving metadata.  :meth:`serve_block` scores
+    whole query blocks for the engine's batched ``run`` fast path.
+    """
+
+    #: Reserved StateMatrix id for the materialized serving layout's zone
+    #: maps.  Policies must use non-negative state ids.
+    SERVING_SHADOW = -1
+
+    def __init__(self, data: torch.Tensor):
+        if not isinstance(data, torch.Tensor) or data.dtype != torch.float64:
+            raise TypeError("InMemoryBackend needs the table as a float64 "
+                            "tensor on its device (see repro_torch.data)")
+        self.data = data
+        self._init_registry(data.device)
+        self._serving: Optional[L.Layout] = None
+        self._serving_cache: Optional[tuple] = None
+        self._serve_memo: Optional[tuple] = None
+        self._shadow_slot: Optional[tuple] = None   # (plane version, slot)
+
+    def prepare(self, state_id: int) -> None:
+        # In-memory reorganization is instantaneous; nothing to overlap.
+        pass
+
+    @property
+    def pending_states(self) -> List[int]:
+        """State ids with in-flight physical work (always empty here)."""
+        return []
+
+    def _install_serving_meta(self, meta: L.PartitionMetadata) -> None:
+        """Swap the physical serving zone maps."""
+        self._serving_cache = (meta.mins.contiguous(), meta.maxs.contiguous(),
+                               L.self_rows(meta), max(meta.total_rows, 1))
+        self._serve_memo = None
+        # Re-registering the shadow fires the StateMatrix listener events,
+        # so a mirror keeps scoring the serving state.
+        self._matrix.register(self.SERVING_SHADOW, meta)
+
+    def activate(self, state_id: int) -> None:
+        layout = self._layouts[state_id]
+        self._serving = layout
+        self._install_serving_meta(layout.materialize(self.data))
+
+    @property
+    def serving_state(self) -> Optional[int]:
+        return None if self._serving is None else self._serving.layout_id
+
+    @property
+    def serving_layout(self) -> Optional[L.Layout]:
+        """The Layout object behind :attr:`serving_state`."""
+        return self._serving
+
+    def estimate_costs(self, state_ids: Sequence[int],
+                       query: wl.Query) -> Dict[int, float]:
+        """Batched metadata-only c(s, q) for every requested state; the
+        serving shadow's score rides along and memoizes :meth:`serve`."""
+        m = self._matrix
+        costs = self._primed_costs(query)
+        if costs is None:
+            costs = m.estimate(query.lo, query.hi)
+            out = {s: float(costs[m.slot(s)]) for s in state_ids}
+        else:
+            out = self._primed_dict(costs, state_ids)
+        if self.SERVING_SHADOW in m:
+            # The kernel is exact, so the shadow's estimate *is* the serve
+            # cost: remember it so serve() on this query is a lookup.
+            self._serve_memo = (query,
+                                float(costs[m.slot(self.SERVING_SHADOW)]))
+        return out
+
+    def estimate_vector(self, query: wl.Query) -> np.ndarray:
+        """All registered states' c(s, q) as one float64 per-slot vector
+        (slot order is :attr:`StateMatrix.state_ids`); primed costs are
+        consumed, and the serving shadow's score memoizes :meth:`serve`."""
+        m = self._matrix
+        primed = self._primed
+        version = m.version
+        if (primed is not None and primed[0] is query
+                and primed[1] == version):
+            return primed[2]
+        costs = m.estimate(query.lo, query.hi)
+        shadow = self.shadow_slot(version)
+        if shadow >= 0:
+            self._serve_memo = (query, float(costs[shadow]))
+        return costs
+
+    def shadow_slot(self, version: int) -> int:
+        """Packed slot of the serving-shadow state (-1 if absent), cached
+        per plane version."""
+        shadow = self._shadow_slot
+        if shadow is None or shadow[0] != version:
+            m = self._matrix
+            slot = (m.slot(self.SERVING_SHADOW)
+                    if self.SERVING_SHADOW in m else -1)
+            self._shadow_slot = (version, slot)
+            return slot
+        return shadow[1]
+
+    def serve(self, query: wl.Query) -> float:
+        memo = self._serve_memo
+        if memo is not None and memo[0] is query:
+            return memo[1]
+        mins, maxs, rows, total = self._serving_cache
+        acc = compute.masked_overlap(mins, maxs, query.lo, query.hi)
+        return float(L.scanned_dot(acc, rows) / total)
+
+    def serve_block(self, q_lo: np.ndarray, q_hi: np.ndarray) -> np.ndarray:
+        """Serve a (B, C) block of queries against the current layout.
+
+        Used by ``LayoutEngine.run``'s batched fast path between layout
+        swaps: one B x P scan, and each element bit-identical to the
+        per-query :meth:`serve`.
+        """
+        if len(q_lo) == 0:
+            return np.zeros(0)
+        mins, maxs, rows, total = self._serving_cache
+        acc = compute.scan_matrix(q_lo, q_hi, mins, maxs)
+        return L.scanned_dot(acc, rows) / total

@@ -1,0 +1,230 @@
+"""The stepwise online loop: one engine, pluggable policies and backends.
+
+``LayoutEngine.step(query)`` interleaves the three concerns of Figure 1 for a
+single query — decision (policy), physical reorganization (backend, with the
+paper's §VI-D5 Δ-delay between charging a reorg and the swap taking effect),
+and serving — and returns a :class:`StepResult`.  ``run(stream)`` produces a
+:class:`repro_torch.core.oreo.RunResult` trace; when the backend supports
+block serving it pre-stacks the stream's query bounds and evaluates serve
+costs in blocks between layout swaps (the decision loop stays strictly
+per-query), which is bit-identical to stepping because decisions never
+depend on realized serve costs.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Deque, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core import oreo as _oreo
+from repro_torch.core import workload as wl
+
+from .backends import StorageBackend
+from .policies import Decision, Policy
+
+
+@dataclasses.dataclass
+class StepResult:
+    """Everything observable about one query's pass through the loop."""
+
+    index: int
+    query: wl.Query
+    query_cost: float               # fraction of records accessed serving it
+    decision_state: int             # state per the decision maker
+    serving_state: Optional[int]    # physically materialized state
+    reorg_charged: bool             # alpha charged at this query
+    states_added: List[int]
+    states_removed: List[int]
+    decide_seconds: float
+    reorg_seconds: float            # prepare + any swap applied this query
+    serve_seconds: float
+
+
+class LayoutEngine:
+    """Drives a :class:`Policy` against a :class:`StorageBackend`, query by
+    query.  Single-use and stateful: feed it one logical stream (via
+    :meth:`step` or :meth:`run`) and read the trace with :meth:`result`.
+
+    The fleet's reorg governor, the incremental reorganization plane and
+    streaming ingest belong to later slices of the port; asking for them
+    raises :class:`NotImplementedError`.
+    """
+
+    def __init__(self, policy: Policy, backend: StorageBackend,
+                 delta: int = 0, name: Optional[str] = None,
+                 governor: Optional[object] = None,
+                 incremental: bool = False,
+                 ingest: Optional[object] = None):
+        for given, what, queue in ((governor is not None, "governor", 5),
+                                   (incremental, "incremental=True", 6),
+                                   (ingest is not None, "ingest", 7)):
+            if given:
+                raise NotImplementedError(
+                    f"LayoutEngine({what}) is not ported yet (ROADMAP.md, "
+                    f"queue 1 item {queue})")
+        self.policy = policy
+        self.backend = backend
+        self.delta = delta
+        self.name = name or policy.name
+        self.alpha = policy.alpha
+        self._started = False
+        self._index = 0
+        self._query_costs: List[float] = []
+        self._reorg_indices: List[int] = []
+        self._state_seq: List[int] = []
+        # (effective_idx, sid); appended in index order, drained from the
+        # front — a deque keeps the drain O(1) per swap.
+        self._pending_swaps: Deque[Tuple[int, int]] = collections.deque()
+        self._decide_seconds = 0.0
+        self._reorg_seconds = 0.0
+        self._serve_seconds = 0.0
+
+    # ------------------------------------------------------------------
+    def start(self) -> None:
+        """Bind the policy and materialize the initial serving layout."""
+        if self._started:
+            return
+        initial_state = self.policy.bind(self.backend)
+        self.backend.activate(initial_state)
+        self._started = True
+
+    def _charge_reorg(self, i: int, decision: Decision) -> None:
+        """Bookkeeping for a charged reorganization (shared by step/run).
+
+        The cost is charged at decision time (paper §VI-D5); the physical
+        swap lands Δ queries later.  Backends may overlap the wait with
+        background materialization started by ``prepare``.
+        """
+        if decision.reorg:
+            self._reorg_indices.append(i)
+            self.backend.prepare(decision.state)
+            self._pending_swaps.append((i + self.delta, decision.state))
+
+    def _apply_due_swaps(self, i: int) -> None:
+        """Apply every swap that is due, in charge order; a state evicted
+        while its swap was in flight is skipped."""
+        while self._pending_swaps and self._pending_swaps[0][0] <= i:
+            _, sid = self._pending_swaps.popleft()
+            if self.backend.has(sid):
+                self.backend.activate(sid)
+
+    def _step_core(self, query: wl.Query):
+        """The decide/charge/swap/serve sequence shared by :meth:`step`
+        and :meth:`step_fast`."""
+        self.start()
+        i = self._index
+        t0 = time.perf_counter()
+        decision = self.policy.decide(i, query, self.backend)
+        t1 = time.perf_counter()
+        self._charge_reorg(i, decision)
+        self._apply_due_swaps(i)
+        t2 = time.perf_counter()
+        query_cost = float(self.backend.serve(query))
+        t3 = time.perf_counter()
+        self._query_costs.append(query_cost)
+        self._state_seq.append(decision.state)
+        self._index += 1
+        decide, reorg, serve = t1 - t0, t2 - t1, t3 - t2
+        self._decide_seconds += decide
+        self._reorg_seconds += reorg
+        self._serve_seconds += serve
+        return i, decision, query_cost, decide, reorg, serve
+
+    def step(self, query: wl.Query) -> StepResult:
+        """Advance the online loop by one query."""
+        i, decision, query_cost, decide, reorg, serve = \
+            self._step_core(query)
+        return StepResult(
+            index=i,
+            query=query,
+            query_cost=query_cost,
+            decision_state=decision.state,
+            serving_state=self.backend.serving_state,
+            reorg_charged=decision.reorg,
+            states_added=decision.added,
+            states_removed=decision.removed,
+            decide_seconds=decide,
+            reorg_seconds=reorg,
+            serve_seconds=serve,
+        )
+
+    def step_fast(self, query: wl.Query) -> float:
+        """One query through the loop without materializing a StepResult
+        (same :meth:`_step_core`, same trace); returns the query cost."""
+        return self._step_core(query)[2]
+
+    # ------------------------------------------------------------------
+    def result(self, name: Optional[str] = None) -> _oreo.RunResult:
+        """Trace of every query stepped so far."""
+        return _oreo.RunResult(
+            name=name or self.name,
+            alpha=self.alpha,
+            query_costs=np.asarray(self._query_costs),
+            reorg_indices=list(self._reorg_indices),
+            state_seq=np.asarray(self._state_seq, dtype=np.int64),
+            info=dict(self.policy.info()),
+            decide_seconds=self._decide_seconds,
+            reorg_seconds=self._reorg_seconds,
+            serve_seconds=self._serve_seconds,
+        )
+
+    def run(self, stream: wl.WorkloadStream, name: Optional[str] = None,
+            batch_serve: Optional[bool] = None) -> _oreo.RunResult:
+        """Step every query of ``stream`` and return the trace.
+
+        When the backend exposes ``serve_block`` (``batch_serve=None`` auto-
+        detects; pass False to force the stepwise loop), serve costs are
+        evaluated in blocks of consecutive queries served by the same
+        physical layout: the per-query decision loop runs unchanged, serves
+        are deferred, and each block is flushed right before a layout swap
+        takes effect.  The resulting trace is bit-identical to stepping.
+        """
+        queries = list(stream)
+        has_block = callable(getattr(self.backend, "serve_block", None))
+        if batch_serve is None:
+            batch_serve = has_block
+        elif batch_serve and not has_block:
+            raise ValueError(
+                "batch_serve=True requires a backend with serve_block")
+        if not batch_serve:
+            for query in queries:
+                self.step(query)
+            return self.result(name)
+        if not queries:
+            return self.result(name)
+        self.start()
+        q_lo, q_hi = wl.stack_queries(queries)
+        costs = np.empty(len(queries))
+        block = 0
+        for k, query in enumerate(queries):
+            i = self._index
+            t0 = time.perf_counter()
+            decision = self.policy.decide(i, query, self.backend)
+            t1 = time.perf_counter()
+            self._charge_reorg(i, decision)
+            flush = 0.0
+            if self._pending_swaps and self._pending_swaps[0][0] <= i:
+                # Flush the open serve block before the swap changes the
+                # serving layout (a step serves *after* applying due swaps,
+                # so query k itself belongs to the next block).
+                if k > block:
+                    ts = time.perf_counter()
+                    costs[block:k] = self.backend.serve_block(
+                        q_lo[block:k], q_hi[block:k])
+                    flush = time.perf_counter() - ts
+                block = k
+                self._apply_due_swaps(i)
+            t2 = time.perf_counter()
+            self._state_seq.append(decision.state)
+            self._index += 1
+            self._decide_seconds += t1 - t0
+            self._reorg_seconds += t2 - t1 - flush
+            self._serve_seconds += flush
+        ts = time.perf_counter()
+        costs[block:] = self.backend.serve_block(q_lo[block:], q_hi[block:])
+        self._serve_seconds += time.perf_counter() - ts
+        self._query_costs.extend(float(c) for c in costs)
+        return self.result(name)

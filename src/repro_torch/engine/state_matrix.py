@@ -1,0 +1,247 @@
+"""StateMatrix: the incrementally-maintained packed metadata plane.
+
+OREO's decision loop is metadata-only: every query is scored against every
+candidate layout's zone maps.  :class:`StateMatrix` keeps them packed and
+*persistent* on the device — padded ``(S_cap, P_cap, C)`` float64
+``mins``/``maxs`` plus id <-> slot maps — updated in O(P*C) on
+:meth:`register` / :meth:`deregister` instead of rebuilt per query.
+
+Scoring: the ``(n * P_cap, C)`` view of the plane goes to the scan kernel
+(:func:`repro_torch.engine.compute.masked_overlap`) without a copy; padding
+partitions hold [+inf, -inf] bounds and are never scanned.  The
+``(n, P_cap)`` bool scan matrix comes back to the host, where the
+row-weighted reduction runs through the same numpy einsum as the reference
+package (the row counts live on the host for that), so estimates are
+bit-identical to ``eval_cost_states`` and per-state ``eval_cost``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import layouts as L
+
+from . import compute
+
+
+class StateMatrix:
+    """Persistent packed zone maps for all registered layout states."""
+
+    def __init__(self, device: torch.device, state_capacity: int = 8):
+        self.device = torch.device(device)
+        if self.device.type not in compute.BACKENDS:
+            raise ValueError(f"unsupported device: {self.device}")
+        self._scap = max(int(state_capacity), 1)
+        self._pcap = 0
+        self._c: Optional[int] = None
+        self._n = 0
+        self._ids: List[int] = []              # slot -> state id
+        self._slots: Dict[int, int] = {}       # state id -> slot
+        self._counts: List[int] = []           # slot -> partition count
+        self._totals: List[int] = []           # slot -> max(total_rows, 1)
+        self._rows_exact: List[np.ndarray] = []  # slot -> contiguous (P_s,) f64
+        self._mins: Optional[torch.Tensor] = None    # (S_cap, P_cap, C) device
+        self._maxs: Optional[torch.Tensor] = None
+        self._rows: Optional[np.ndarray] = None      # (S_cap, P_cap) f64 host
+        self._totals_arr: Optional[np.ndarray] = None  # (S_cap,) f64 host
+        self._uniform = True    # all counts == P_cap -> batched reduction
+        #: Bumped on every register/deregister; consumers may key caches on it.
+        self.version = 0
+        #: Mirror hooks: each listener's ``on_register(state_id, meta)`` /
+        #: ``on_deregister(state_id)`` fires *after* the plane update, in the
+        #: same order the plane saw it, so a mirror replaying the events with
+        #: the same swap-with-last algorithm assigns identical slots.
+        self._listeners: List = []
+
+    def _add_listener(self, listener) -> None:
+        self._listeners.append(listener)
+
+    def _remove_listener(self, listener) -> None:
+        self._listeners.remove(listener)
+
+    # -- introspection --------------------------------------------------
+    def __len__(self) -> int:
+        return self._n
+
+    def __contains__(self, state_id: int) -> bool:
+        return state_id in self._slots
+
+    @property
+    def state_ids(self) -> List[int]:
+        """Registered state ids in slot order."""
+        return list(self._ids)
+
+    @property
+    def num_columns(self) -> Optional[int]:
+        return self._c
+
+    @property
+    def partition_capacity(self) -> int:
+        return self._pcap
+
+    @property
+    def uniform(self) -> bool:
+        """True when every registered state fills the full partition width,
+        i.e. :meth:`estimate` reduces via the batched einsum path."""
+        return self._uniform
+
+    def slot(self, state_id: int) -> int:
+        """Packed slot index of a registered state (KeyError if unknown)."""
+        return self._slots[state_id]
+
+    def metadata(self, state_id: int) -> L.PartitionMetadata:
+        """The registered state's exact zone maps (views into the plane)."""
+        slot = self._slots[state_id]
+        p = self._counts[slot]
+        rows = self._rows[slot, :p].copy()
+        return L.PartitionMetadata(
+            mins=self._mins[slot, :p], maxs=self._maxs[slot, :p],
+            rows=torch.from_numpy(rows).to(self.device), rows_host=rows)
+
+    # -- allocation -----------------------------------------------------
+    def _alloc(self, scap: int, pcap: int) -> None:
+        c = self._c
+        kw = dict(dtype=torch.float64, device=self.device)
+        mins = torch.full((scap, pcap, c), np.inf, **kw)
+        maxs = torch.full((scap, pcap, c), -np.inf, **kw)
+        rows = np.zeros((scap, pcap))
+        totals = np.ones(scap)
+        n = self._n
+        if n and self._mins is not None:
+            old_p = self._pcap
+            mins[:n, :old_p] = self._mins[:n]
+            maxs[:n, :old_p] = self._maxs[:n]
+            rows[:n, :old_p] = self._rows[:n]
+            totals[:n] = self._totals_arr[:n]
+        self._mins, self._maxs = mins, maxs
+        self._rows, self._totals_arr = rows, totals
+        self._scap, self._pcap = scap, pcap
+
+    def _refresh_uniform(self) -> None:
+        self._uniform = all(p == self._pcap for p in self._counts)
+
+    # -- maintenance (O(P*C) per call) ----------------------------------
+    def register(self, state_id: int, meta: L.PartitionMetadata) -> None:
+        """Add (or overwrite) one state's zone maps in the packed plane."""
+        if self._c is None:
+            self._c = meta.num_columns
+        elif meta.num_columns != self._c:
+            raise ValueError(
+                f"state {state_id}: {meta.num_columns} columns, plane has "
+                f"{self._c}")
+        p = meta.num_partitions
+        slot = self._slots.get(state_id)
+        if slot is None:
+            if self._mins is None or self._n == self._scap or p > self._pcap:
+                self._alloc(max(self._scap, 2 * self._n, 1),
+                            max(self._pcap, p))
+            slot = self._n
+            self._n += 1
+            self._ids.append(state_id)
+            self._slots[state_id] = slot
+            self._counts.append(p)
+            self._totals.append(1)
+            self._rows_exact.append(np.zeros(0))
+        elif p > self._pcap:
+            self._alloc(self._scap, p)
+        self._mins[slot, :p] = meta.mins
+        self._mins[slot, p:] = np.inf
+        self._maxs[slot, :p] = meta.maxs
+        self._maxs[slot, p:] = -np.inf
+        self._rows[slot, :p] = meta.rows_host
+        self._rows[slot, p:] = 0.0
+        total = max(meta.total_rows, 1)
+        self._counts[slot] = p
+        self._totals[slot] = total
+        self._totals_arr[slot] = total
+        self._rows_exact[slot] = L.self_rows(meta)
+        self._refresh_uniform()
+        self.version += 1
+        for listener in self._listeners:
+            listener.on_register(state_id, meta)
+
+    def deregister(self, state_id: int) -> None:
+        """Drop one state; the last slot is swapped into the hole (O(P*C)).
+        Unknown ids are a no-op."""
+        slot = self._slots.pop(state_id, None)
+        if slot is None:
+            return
+        last = self._n - 1
+        if slot != last:
+            self._mins[slot] = self._mins[last]
+            self._maxs[slot] = self._maxs[last]
+            self._rows[slot] = self._rows[last]
+            self._totals_arr[slot] = self._totals_arr[last]
+            moved = self._ids[last]
+            self._ids[slot] = moved
+            self._slots[moved] = slot
+            self._counts[slot] = self._counts[last]
+            self._totals[slot] = self._totals[last]
+            self._rows_exact[slot] = self._rows_exact[last]
+        self._ids.pop()
+        self._counts.pop()
+        self._totals.pop()
+        self._rows_exact.pop()
+        self._n = last
+        # Wipe the vacated slot back to the identity fill values.  Every
+        # reader slices [:n], so stale bounds would be latent — but a later
+        # register that reuses the slot for a *narrower* state relies on
+        # register() overwriting [p:] tails, and keeping the plane identical
+        # under register/deregister churn keeps snapshots byte-comparable.
+        self._mins[last] = np.inf
+        self._maxs[last] = -np.inf
+        self._rows[last] = 0.0
+        self._totals_arr[last] = 1.0
+        self._refresh_uniform()
+        self.version += 1
+        for listener in self._listeners:
+            listener.on_deregister(state_id)
+
+    # -- scoring --------------------------------------------------------
+    def _scanned(self, q_lo: np.ndarray, q_hi: np.ndarray) -> np.ndarray:
+        """(n, P_cap) host bool scan matrix over all registered states: the
+        plane's ``(n * P_cap, C)`` view against one query, in one launch."""
+        n = self._n
+        return compute.masked_overlap(self._mins[:n], self._maxs[:n],
+                                      q_lo, q_hi)
+
+    def reduce_scanned(self, scanned: np.ndarray) -> np.ndarray:
+        """Row-weighted reduction of an (n, P_cap) scan matrix to (n,) costs.
+
+        The single reduction behind :meth:`estimate`, on the host.
+        ``scanned`` must be C-contiguous, exactly as :meth:`_scanned` emits.
+        """
+        n = self._n
+        if self._uniform:
+            # All states fill the full partition width: one batched einsum
+            # (same contiguous kernel as scanned_dot, so still bit-exact).
+            return (np.einsum("sp,sp->s", scanned, self._rows[:n])
+                    / self._totals_arr[:n])
+        out = np.empty(n)
+        for s in range(n):
+            out[s] = (L.scanned_dot(scanned[s, :self._counts[s]],
+                                    self._rows_exact[s]) / self._totals[s])
+        return out
+
+    def estimate(self, q_lo: np.ndarray, q_hi: np.ndarray) -> np.ndarray:
+        """Service cost c(s, q) of one query under every registered state.
+
+        Returns float64 (n,) in slot order — bit-identical to
+        ``eval_cost_states`` / per-state ``eval_cost`` over the same
+        metadata.
+        """
+        if self._n == 0:
+            return np.zeros(0)
+        return self.reduce_scanned(self._scanned(q_lo, q_hi))
+
+    def estimate_costs(self, state_ids: Sequence[int], q_lo: np.ndarray,
+                       q_hi: np.ndarray) -> Dict[int, float]:
+        """Per-id costs for the requested states (scored all at once)."""
+        ids = list(state_ids)
+        if not ids:
+            return {}
+        costs = self.estimate(q_lo, q_hi)
+        slots = self._slots
+        return {s: float(costs[slots[s]]) for s in ids}

@@ -27,3 +27,8 @@ else:
     )
     settings.register_profile("dev", deadline=None)
     settings.load_profile("ci" if os.environ.get("CI") else "dev")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
