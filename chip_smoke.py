@@ -3,25 +3,42 @@
 
     python3 chip_smoke.py                  # every phase, as the check runs it
     python3 chip_smoke.py --phases kernel  # environment + kernel phase only
+    python3 chip_smoke.py --phases kernel,fleet_parity,fleet_full
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. ``env``: the card's name and power limit, torch and CUDA versions, and
-   the build of every kernel from ``src/repro_torch/csrc`` (nvcc for sm_90a).
-2. ``kernel``: each kernel against its plain PyTorch version on the card,
-   exact, at the shapes the main path gives it plus ragged and edge shapes,
-   with CUDA-event times and the least time the card could take (bound).
+   the build of every kernel from ``src/repro_torch/csrc`` (one nvcc per
+   source, all started together, for sm_90a).
+2. ``kernel``: each kernel (pruning, fleet_scan, decision_fused) against its
+   plain PyTorch version on the card, at the shapes the main paths give it
+   plus ragged and edge shapes, with CUDA-event times and the least time
+   the card could take (bound).  Scans and ``freq`` must be exact, ``cost``
+   within rel 1e-12.
 3. ``parity``: the single-table loop at 20,000 rows x 8 columns and 1,500
    queries under OREO, Static, Greedy and Regret, on the card and on the
    CPU; the traces must be bitwise equal.
-4. ``full``: the ``tpch-sf10-oreo`` cell -- OREO and Static over a
+4. ``fleet_parity``: 3 tenants of 20,000 x 8, the five drift scenarios x
+   three schedulers, 120 queries per tenant, OREO tenants and threshold
+   tenants (0, 0.05, 1e9), each through ``run`` and ``run_batched`` on both
+   lanes, on the card and on the CPU; every trace and counter must be
+   bitwise equal to the CPU's ``run``.
+5. ``full``: the ``tpch-sf10-oreo`` cell -- OREO and Static over a
    59,986,052-row x 32-column TPC-H-like table (lineitem at scale factor 10)
-   on the card, 12,000 queries of 16 templates, alpha = 80, P = 32.  Kernel
-   launch counts are reset just before and read just after.
+   on the card, 12,000 queries of 16 templates, alpha = 80, P = 32.
+6. ``fleet_full``: the ``fleet16-sf1-oreo-k1`` cell (16 OREO tenants of
+   6,001,215 x 8 under one maintenance worker, ``sudden_shift``, 1,500
+   queries per tenant) and the ``fleet64-sf1-threshold`` cell (64 threshold
+   tenants of 6,001,215 x 10, 8 projection-sorted layouts each, 300
+   selective queries per tenant, both lanes, whose traces must be equal).
 
-Then the kernels' summary line, the card line, and as the last line
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
-without a CUDA device the script exits 2 before printing any result.
+Kernel launch counts are reset just before each main path and read just
+after it; every 50th (fleet) or 100th (single table) scoring call of a
+main path is checked against the plain version on CPU copies of the same
+plane.  Then the kernels' summary line, the card line, and as the last
+line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+non-zero; without a CUDA device the script exits 2 before printing any
+result.
 """
 from __future__ import annotations
 
@@ -46,6 +63,10 @@ SEGMENTS = 12
 TEMPLATES = 16
 ALPHA = 80.0
 PARTITIONS = 32
+
+SF1_ROWS = 6_001_215          # TPC-H lineitem cardinality at SF 1
+FLEET_SEED = 100              # benchmarks/bench_fleet.py: tenant tables
+PHASES = ("kernel", "parity", "fleet_parity", "full", "fleet_full")
 
 
 def emit(phase: str, **fields) -> None:
@@ -443,14 +464,661 @@ def stage_peaks(device, data, stream, oreo_policy) -> dict:
             "largest_partition_share": max(shares, default=None)}
 
 
+# ---------------------------------------------------------------------------
+# The fleet kernels
+# ---------------------------------------------------------------------------
+
+def plane_bound(b: int, t: int, n: int, c: int, w: int = 0,
+                cost: bool = False) -> dict:
+    """Least time for scoring B frames (and a W-row window) of T tenants
+    against their N = S * P slots of C columns: each input read once
+    (frames, plane, window; row counts and inverse totals when ``cost``),
+    each output written once (the B x T x N scan bytes; B x T x S costs are
+    not counted, a lower bound), 3 float64 operations per (frame or window
+    row, t, n, c)."""
+    nbytes = (2 * b * t * c + 2 * t * n * c + 2 * w * c) * 8 + b * t * n
+    if cost:
+        nbytes += t * n * 8
+    if w:
+        nbytes += t * n * 8
+    ops = 3 * (b + w) * t * n * c
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def plane_operands(rng, b: int, t: int, s: int, p: int, c: int, w: int = 0):
+    """Frames (B, T, C) and a plane (T, S, P, C) as the fleet's passes give
+    them: +-inf bounds, empty partitions, a padded last state, query bounds
+    equal to the tenant's own zone-map ends, and in every frame one
+    query-less tenant of [-inf, +inf] dummies; row counts, inverse totals
+    and a (W, C) window."""
+    import numpy as np
+    mins = rng.uniform(0, 100, (t, s, p, c))
+    maxs = mins + rng.uniform(0, 30, (t, s, p, c))
+    empty = rng.random((t, s, p)) < 0.1
+    mins[empty], maxs[empty] = np.inf, -np.inf
+    if s > 1:
+        mins[:, -1, p // 2:], maxs[:, -1, p // 2:] = np.inf, -np.inf
+    lo = rng.uniform(-10, 110, (b, t, c))
+    hi = lo + rng.uniform(0, 40, (b, t, c))
+    if s * p and c:
+        flat_min, flat_max = mins.reshape(t, s * p, c), maxs.reshape(
+            t, s * p, c)
+        pick = rng.integers(0, s * p, (b, t, c))
+        ti = np.broadcast_to(np.arange(t)[None, :, None], (b, t, c))
+        ci = np.broadcast_to(np.arange(c), (b, t, c))
+        at_min = rng.random((b, t, c)) < 0.15
+        at_max = rng.random((b, t, c)) < 0.15
+        hi[at_min] = flat_min[ti, pick, ci][at_min]
+        lo[at_max] = flat_max[ti, pick, ci][at_max]
+    lo[rng.random((b, t, c)) < 0.4] = -np.inf
+    hi[rng.random((b, t, c)) < 0.4] = np.inf
+    if t > 1:
+        dummy = rng.integers(0, t, b)
+        lo[np.arange(b), dummy], hi[np.arange(b), dummy] = -np.inf, np.inf
+    rows = rng.integers(0, 1000, (t, s, p)).astype(np.float64)
+    inv = 1.0 / np.maximum(rows.sum(-1), 1.0)
+    w_lo = rng.uniform(-10, 110, (w, c))
+    w_hi = w_lo + rng.uniform(0, 60, (w, c))
+    w_lo[rng.random((w, c)) < 0.4] = -np.inf
+    return lo, hi, mins, maxs, rows, inv, w_lo, w_hi
+
+
+def plane_view(device, mins, maxs, c_pad: int = 0, t_step: int = 1):
+    """The plane on ``device``; with ``c_pad`` / ``t_step`` a view of a
+    plane with more columns and tenants (read in place by the kernels)."""
+    import torch
+    t, s, p, c = mins.shape
+    wmin = torch.zeros((t * t_step, s, p, c + c_pad), dtype=torch.float64,
+                       device=device)
+    wmax = torch.zeros_like(wmin)
+    wmin[::t_step, ..., :c] = torch.as_tensor(mins, device=device)
+    wmax[::t_step, ..., :c] = torch.as_tensor(maxs, device=device)
+    return wmin[::t_step, ..., :c], wmax[::t_step, ..., :c]
+
+
+#: (name, B, T, S, P, C, W, c_pad, t_step).  The first two are the main
+#: paths' passes, whose plane shapes the cells report: fleet64-sf1-threshold
+#: (1024 // 64 = 16 frames; T_cap 128, because the plane's growth schedule
+#: doubles the tenant axis when the state axis grows; S_cap 12 = 8 layouts
+#: + the serving shadow; P 8; C 10) and fleet16-sf1-oreo-k1 (256 // 16 =
+#: 16 frames; T_cap 32, S_cap 8, P 16, C 8).
+FLEET_SHAPES = [
+    ("fleet64 pass", 16, 128, 12, 8, 10, 0, 0, 1),
+    ("fleet16 pass", 16, 32, 8, 16, 8, 0, 0, 1),
+    ("fleet64 pass + 80-query window", 16, 128, 12, 8, 10, 80, 0, 1),
+    ("ragged", 3, 17, 3, 130, 7, 5, 0, 1),
+    ("partitions past one tile", 2, 3, 2, 300, 3, 2, 0, 1),
+    ("bounds past 48 KB of shared memory", 2, 4, 2, 33, 100, 3, 0, 1),
+    ("zero columns", 2, 3, 4, 40, 0, 2, 0, 1),
+    ("one frame, one window row", 1, 5, 3, 9, 4, 1, 0, 1),
+    ("strided plane view", 4, 6, 3, 10, 5, 3, 2, 2),
+]
+
+
+def time_fleet_kernels(device, lo, hi, vmin, vmax, reps: int = 200) -> dict:
+    """CUDA-event ms per call at one pass shape, scan only (what the main
+    paths launch): each kernel raw (its ``ctypes`` launch) and through its
+    wrapper, and its plain version; fleet_scan for one frame."""
+    import torch
+    from repro_torch.kernels import _backend
+    from repro_torch.kernels.decision_fused import decision_fused, ref as dref
+    from repro_torch.kernels.fleet_scan import fleet_scan, ref as fref
+    b, t, c = lo.shape
+    _, s, p, _ = vmin.shape
+    stream = _backend.stream_handle(device)
+    scan = torch.empty((b, t, s, p), dtype=torch.bool, device=device)
+    lib = decision_fused._lib()
+    fmin, fmax = vmin.flatten(1, 2), vmax.flatten(1, 2)
+    out = torch.empty((t, s * p), dtype=torch.bool, device=device)
+    fn = fleet_scan._kernel()
+    lo0, hi0 = lo[0].contiguous(), hi[0].contiguous()
+
+    def raw_fused():
+        lib.decision_fused(lo.data_ptr(), hi.data_ptr(), vmin.data_ptr(),
+                           vmax.data_ptr(), vmin.stride(0), vmin.stride(1),
+                           vmin.stride(2), None, None, None, None,
+                           scan.data_ptr(), None, None, b, t, s, p, c, 0,
+                           stream)
+
+    def raw_fleet():
+        fn(lo0.data_ptr(), hi0.data_ptr(), fmin.data_ptr(), fmax.data_ptr(),
+           fmin.stride(0), fmin.stride(1), out.data_ptr(), t, s * p, c,
+           stream)
+    return {
+        "decision_fused": {
+            "ms": cuda_time_ms(raw_fused, reps),
+            "wrapper_ms": cuda_time_ms(lambda: decision_fused.fused_decision(
+                lo, hi, vmin, vmax), reps),
+            "plain_ms": cuda_time_ms(lambda: dref.fused_decision(
+                lo, hi, vmin, vmax), reps),
+            **plane_bound(b, t, s * p, c)},
+        "fleet_scan": {
+            "ms": cuda_time_ms(raw_fleet, reps),
+            "wrapper_ms": cuda_time_ms(lambda: fleet_scan.scan_fleet(
+                lo0, hi0, fmin, fmax), reps),
+            "plain_ms": cuda_time_ms(lambda: fref.scan_fleet(
+                lo0, hi0, fmin, fmax), reps),
+            **plane_bound(1, t, s * p, c)}}
+
+
+def phase_fleet_kernels(device) -> dict:
+    """Both fleet kernels against their plain versions over FLEET_SHAPES;
+    returns each kernel's summary at the fleet64 pass shape."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decision_fused import decision_fused, ref as dref
+    from repro_torch.kernels.fleet_scan import fleet_scan, ref as fref
+    rng = np.random.default_rng(1)
+    errs = {"fleet_scan": 0.0, "decision_fused": 0.0}
+    main = None
+    for name, b, t, s, p, c, w, c_pad, t_step in FLEET_SHAPES:
+        lo, hi, mins, maxs, rows, inv, w_lo, w_hi = plane_operands(
+            rng, b, t, s, p, c, w)
+        vmin, vmax = plane_view(device, mins, maxs, c_pad, t_step)
+        dev = [torch.as_tensor(a, device=device)
+               for a in (lo, hi, rows, inv, w_lo, w_hi)]
+        window = dev[4:] if w else [None, None]
+        got = decision_fused.fused_decision(dev[0], dev[1], vmin, vmax,
+                                            dev[2], dev[3], *window)
+        want = dref.fused_decision(dev[0], dev[1], vmin, vmax, dev[2],
+                                   dev[3], *window)
+        per_frame = [fleet_scan.scan_fleet(dev[0][k], dev[1][k],
+                                           vmin.flatten(1, 2),
+                                           vmax.flatten(1, 2))
+                     for k in range(b)]
+        plain_frames = [fref.scan_fleet(dev[0][k], dev[1][k],
+                                        vmin.flatten(1, 2),
+                                        vmax.flatten(1, 2))
+                        for k in range(b)]
+        torch.cuda.synchronize()
+        scan_err = int((got[0].int() - want[0].int()).abs().max()
+                       ) if got[0].numel() else 0
+        cost_err = float((got[1] - want[1]).abs().max()) if got[1].numel() \
+            else 0.0
+        freq_err = (float((got[2] - want[2]).abs().max())
+                    if w and got[2].numel() else 0.0)
+        fleet_err = max((int((g.int() - h.int()).abs().max())
+                         for g, h in zip(per_frame, plain_frames)
+                         if g.numel()), default=0)
+        cost_ok = torch.allclose(got[1], want[1], rtol=1e-12, atol=0)
+        ok = (torch.equal(got[0], want[0]) and cost_ok
+              and (not w or torch.equal(got[2], want[2]))
+              and all(torch.equal(g, h)
+                      for g, h in zip(per_frame, plain_frames))
+              and all(torch.equal(g.view(t, s, p), got[0][k])
+                      for k, g in enumerate(per_frame)))
+        row = {"shape": name, "b": b, "t": t, "s": s, "p": p, "c": c,
+               "w": w, "plane_strides": list(vmin.stride()), "equal": ok,
+               "scan_max_abs_err": scan_err, "cost_max_abs_err": cost_err,
+               "freq_max_abs_err": freq_err,
+               "fleet_scan_max_abs_err": fleet_err}
+        if not ok:
+            emit("kernel", kernel="fleet", **row)
+            raise AssertionError(f"fleet kernels disagree with their plain "
+                                 f"versions at {name}: {row}")
+        errs["fleet_scan"] = max(errs["fleet_scan"], fleet_err)
+        errs["decision_fused"] = max(errs["decision_fused"], scan_err,
+                                     cost_err, freq_err)
+        if name in ("fleet64 pass", "fleet16 pass"):
+            times = time_fleet_kernels(device, dev[0], dev[1], vmin, vmax)
+            row.update({f"{k}_{m}": v for k, d in times.items()
+                        for m, v in d.items()})
+            if main is None:
+                main = times
+        emit("kernel", kernel="fleet_scan+decision_fused", **row)
+    return {kernel: {"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{kernel}.cu",
+                     "replaces": line, "max_abs_err": errs[kernel],
+                     "ms": main[kernel]["ms"],
+                     "plain_ms": main[kernel]["plain_ms"],
+                     "bound_ms": main[kernel]["bound_ms"],
+                     "bound_by": main[kernel]["bound_by"],
+                     "library_ms": None}
+            for kernel, name, line in (
+                ("fleet_scan", "fleet_scan.scan_fleet",
+                 "src/repro/kernels/fleet_scan/fleet_scan.py:102"),
+                ("decision_fused", "decision_fused.fused_decision",
+                 "src/repro/kernels/decision_fused/decision_fused.py:207"))}
+
+
+class ScanAudit:
+    """Checks the first and then every ``every``-th fleet pass of a run,
+    inside the run.
+
+    Wraps the two compute entry points the FleetMatrix scores passes
+    through: the scan the main path's own launches returned is held
+    against the plain version on CPU copies of the same frames and plane.
+    It launches nothing itself, so the kernels' launch counts stay the
+    main path's.
+    """
+
+    def __init__(self, every: int):
+        from repro_torch.engine import compute
+        self.compute, self.every = compute, every
+        self.calls = self.checked = 0
+        self._fused, self._fleet = (compute.fused_frames_scan,
+                                    compute.fleet_scan_matrix)
+        compute.fused_frames_scan = self._wrap(self._fused, fused=True)
+        compute.fleet_scan_matrix = self._wrap(self._fleet, fused=False)
+
+    def close(self) -> None:
+        self.compute.fused_frames_scan = self._fused
+        self.compute.fleet_scan_matrix = self._fleet
+
+    def _wrap(self, inner, fused: bool):
+        def call(q_lo, q_hi, mins, maxs):
+            got = inner(q_lo, q_hi, mins, maxs)
+            self.calls += 1
+            if (self.calls - 1) % self.every == 0:
+                self.check(q_lo, q_hi, mins, maxs, got, fused)
+                self.checked += 1
+            return got
+        return call
+
+    def check(self, q_lo, q_hi, mins, maxs, got, fused: bool) -> None:
+        import numpy as np
+        import torch
+        from repro_torch.kernels.decision_fused import ref as dref
+        from repro_torch.kernels.fleet_scan import ref as fref
+        lo, hi = torch.as_tensor(q_lo), torch.as_tensor(q_hi)
+        cmin, cmax = mins.cpu(), maxs.cpu()
+        if fused:
+            want = dref.fused_decision(lo, hi, cmin, cmax)[0].numpy()
+        else:
+            want = np.stack([fref.scan_fleet(lo[k], hi[k], cmin,
+                                             cmax).numpy()
+                             for k in range(lo.shape[0])])
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"fleet_full: the kernel's scan of pass "
+                                 f"{self.calls} differs from the plain "
+                                 f"version on the same plane")
+
+
+# ---------------------------------------------------------------------------
+# The fleet: parity card against CPU, and the full-width cells
+# ---------------------------------------------------------------------------
+
+FLEET_SCENARIOS = ("sudden_shift", "gradual_drift", "cyclic_diurnal",
+                   "flash_crowd", "template_churn")
+
+
+def fleet_schedulers():
+    from repro_torch import engine
+    return {"unlimited": engine.UnlimitedScheduler,
+            "k1": lambda: engine.KConcurrentScheduler(1),
+            "bucket": lambda: engine.TokenBucketScheduler(
+                rate=0.01, capacity=1.0, initial=0.0)}
+
+
+def oreo_tenant(data, alpha: float, delta: int, partitions: int, seed: int,
+                window: int, gen_every: int):
+    """One OREO tenant engine over ``data`` (benchmarks/bench_fleet.py's
+    tenant_engine)."""
+    from repro_torch import core, engine
+    cfg = core.OreoConfig(alpha=alpha, seed=seed, delta=delta,
+                          manager=core.LayoutManagerConfig(
+                              target_partitions=partitions,
+                              window_size=window, gen_every=gen_every))
+    policy = engine.OreoPolicy(data, core.build_default_layout(
+        0, data, partitions), core.make_generator("qdtree"), cfg)
+    return engine.LayoutEngine(policy, engine.InMemoryBackend(data),
+                               delta=cfg.delta)
+
+
+def threshold_tenant(data, threshold: float, space=None, delta: int = 2):
+    from repro_torch import core, engine
+    if space is None:
+        space = [core.build_default_layout(
+            sid, data, 8, sort_col=sid % data.shape[1]) for sid in range(3)]
+    return engine.LayoutEngine(engine.ThresholdSwitchPolicy(
+        space, alpha=10.0, threshold=threshold),
+        engine.InMemoryBackend(data), delta=delta)
+
+
+def fleet_trace(res) -> tuple:
+    """Everything of a FleetResult that must be bitwise equal."""
+    return (tuple((tid, r.query_costs.tobytes(), tuple(r.reorg_indices),
+                   r.state_seq.tobytes())
+                  for tid, r in res.per_tenant.items()),
+            res.ticks, res.swaps_deferred, res.deferred_ticks,
+            tuple(sorted(res.scheduler_stats.items())))
+
+
+def phase_fleet_parity(device, rows: int = 20_000, columns: int = 8,
+                       queries: int = 120) -> dict:
+    """Card against CPU, every fleet path; returns the card's launches."""
+    import numpy as np
+    import torch
+    from repro_torch import core, engine
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.pruning import pruning
+    tables = {f"t{t}": np.random.default_rng(FLEET_SEED + t).uniform(
+        0, 100, size=(rows, columns)) for t in range(3)}
+    lo = np.min([d.min(0) for d in tables.values()], axis=0)
+    hi = np.max([d.max(0) for d in tables.values()], axis=0)
+    data = {dev.type: {tid: torch.as_tensor(d, device=dev)
+                       for tid, d in tables.items()}
+            for dev in (device, torch.device("cpu"))}
+    makers = {"oreo": lambda d: oreo_tenant(d, 10.0, 5, 8, 2, 60, 30)}
+    for th in (0.0, 0.05, 1e9):
+        makers[f"threshold{th:g}"] = (
+            lambda d, th=th: threshold_tenant(d, th))
+    counters = (pruning.scan_matrix, fleet_scan.scan_fleet,
+                decision_fused.fused_decision)
+    launched = {c.__name__: 0 for c in counters}
+    combos = 0
+    t0 = time.perf_counter()
+    for policy, make in makers.items():
+        for scenario in FLEET_SCENARIOS:
+            stream = core.make_drift_scenario(scenario, lo, hi,
+                                              num_tenants=3,
+                                              queries_per_tenant=queries,
+                                              seed=7)
+            for sname, sched in fleet_schedulers().items():
+                traces = {}
+                for dev in data:
+                    for mode in ("run", "fleet_scan", "decision_fused"):
+                        before = [c.launches for c in counters]
+                        fleet = engine.FleetEngine(
+                            {tid: make(data[dev][tid])
+                             for tid in stream.tenant_ids}, sched())
+                        res = (fleet.run(stream) if mode == "run" else
+                               fleet.run_batched(stream, compute=mode))
+                        traces[dev, mode] = fleet_trace(res)
+                        for c, b in zip(counters, before):
+                            if dev == "cuda":
+                                launched[c.__name__] += c.launches - b
+                            elif c.launches != b:
+                                raise AssertionError("fleet_parity: a CPU "
+                                                     "run launched a kernel")
+                want = traces["cpu", "run"]
+                bad = [k for k, v in traces.items() if v != want]
+                if bad:
+                    emit("fleet_parity", policy=policy, scenario=scenario,
+                         scheduler=sname, bitwise_equal=False, differ=bad)
+                    raise AssertionError(f"fleet_parity: {policy} "
+                                         f"{scenario} {sname}: {bad} differ "
+                                         f"from the CPU run")
+                combos += 1
+        emit("fleet_parity", policy=policy, scenarios=len(FLEET_SCENARIOS),
+             schedulers=3, runs_per_combo=6, bitwise_equal=True,
+             seconds=time.perf_counter() - t0)
+    if not (launched["scan_fleet"] and launched["fused_decision"]):
+        raise AssertionError(f"fleet_parity: the card runs did not launch "
+                             f"both fleet kernels: {launched}")
+    emit("fleet_parity", combos=combos, launches_card=launched,
+         seconds=time.perf_counter() - t0)
+    return launched
+
+
+class PassCounter:
+    """Counts a fleet's bulk commits and refused (replayed) passes."""
+
+    def __init__(self, fleet):
+        self.bulk = self.replayed = 0
+        inner = fleet._bulk_pass
+
+        def bulk_pass(*args):
+            ok = inner(*args)
+            if ok:
+                self.bulk += 1
+            else:
+                self.replayed += 1
+            return ok
+        fleet._bulk_pass = bulk_pass
+
+
+def fleet_tables(device, tenants: int, rows: int, columns: int) -> dict:
+    """``default_rng(FLEET_SEED + t).uniform(0, 100)`` tables
+    (benchmarks/bench_fleet.py make_tenant_data), one tenant at a time
+    into device tensors."""
+    import numpy as np
+    import torch
+    return {f"t{t}": torch.as_tensor(np.random.default_rng(
+        FLEET_SEED + t).uniform(0, 100, size=(rows, columns)), device=device)
+        for t in range(tenants)}
+
+
+def run_cell(name: str, fleet, events, lane: str, device) -> tuple:
+    """One main-path run: counts reset just before, read just after, the
+    first and every 50th pass audited; returns (result, line fields)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.pruning import pruning
+    counters = {"pruning": pruning.scan_matrix,
+                "fleet_scan": fleet_scan.scan_fleet,
+                "decision_fused": decision_fused.fused_decision}
+    passes = PassCounter(fleet)
+    audit = ScanAudit(every=50)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = fleet.run_batched(events, compute=lane)
+        torch.cuda.synchronize()
+    finally:
+        audit.close()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    for tid, r in res.per_tenant.items():
+        costs = r.query_costs
+        if not (np.isfinite(costs).all() and (costs >= 0).all()
+                and (costs <= 1).all() and len(r.state_seq) == len(costs)):
+            raise AssertionError(f"{name}: {tid}'s trace is malformed")
+    if launches[lane] <= 0:
+        raise AssertionError(f"{name}: the {lane} lane never launched its "
+                             f"kernel")
+    if audit.checked < -(-audit.calls // 50):
+        raise AssertionError(f"{name}: only {audit.checked} of "
+                             f"{audit.calls} passes were audited")
+    fm = fleet.fleet_matrix
+    return res, {
+        "lane": lane, "events": len(events), "run_wall_seconds": wall,
+        "events_per_second": len(events) / wall,
+        "decide_seconds": res.decide_seconds,
+        "reorg_seconds": res.reorg_seconds,
+        "serve_seconds": res.serve_seconds,
+        "launches": launches, "passes_scored": audit.calls,
+        "passes_audited": audit.checked, "bulk_passes": passes.bulk,
+        "replayed_passes": passes.replayed,
+        "plane_shape": [fm._tcap, fm.state_capacity,
+                        fm.partition_capacity, fm.num_columns],
+        "peak_bytes": torch.cuda.max_memory_allocated(device),
+        "total_cost": res.total_cost, "query_cost": res.total_query_cost,
+        "reorg_cost": res.total_reorg_cost, "moves": res.num_reorgs,
+        "swaps_deferred": res.swaps_deferred,
+        "deferred_ticks": res.deferred_ticks,
+        "scheduler_stats": res.scheduler_stats}
+
+
+def cell_fleet16(device, rows: int = SF1_ROWS, tenants: int = 16,
+                 queries: int = 1_500) -> dict:
+    """fleet16-sf1-oreo-k1: 16 OREO tenants under one maintenance worker
+    (benchmarks/bench_fleet.py:59-70 configuration, BENCH_fleet.json
+    config: alpha 20, delta 10, P 16, window 80, gen_every 40)."""
+    import torch
+    from repro_torch import core, engine
+    name = "fleet16-sf1-oreo-k1"
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    tables = fleet_tables(device, tenants, rows, 8)
+    torch.cuda.synchronize()
+    table_seconds = time.perf_counter() - t0
+    lo = torch.stack([d.amin(0) for d in tables.values()]).amin(0)
+    hi = torch.stack([d.amax(0) for d in tables.values()]).amax(0)
+    stream = core.make_drift_scenario("sudden_shift", lo.cpu().numpy(),
+                                      hi.cpu().numpy(), num_tenants=tenants,
+                                      queries_per_tenant=queries, seed=7)
+    t0 = time.perf_counter()
+    fleet = engine.FleetEngine(
+        {tid: oreo_tenant(tables[tid], 20.0, 10, 16, 0, 80, 40)
+         for tid in stream.tenant_ids}, engine.KConcurrentScheduler(1))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    res, fields = run_cell(name, fleet, stream.events, "decision_fused",
+                           device)
+    if res.num_reorgs <= 0:
+        raise AssertionError(f"{name}: no tenant reorganized")
+    fm = fleet.fleet_matrix
+    times = time_fleet_kernels(device, *fleet_frames(fm, device),
+                               fm._mins, fm._maxs)
+    emit("fleet_full", cell=name, tenants=tenants, rows=rows, columns=8,
+         queries_per_tenant=queries, scenario="sudden_shift",
+         scheduler="k1", table_bytes=sum(d.numel() * 8
+                                         for d in tables.values()),
+         table_seconds=table_seconds, setup_seconds=setup,
+         kernels_at_final_plane=times, **fields)
+    return fields["launches"]
+
+
+def fleet_frames(fm, device, b: int = 16):
+    """B frames of unbounded and bounded queries for every tenant row of
+    ``fm``'s plane, on ``device`` (for timing at the run's final shape)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(3)
+    t, c = fm._tcap, fm.num_columns
+    lo = rng.uniform(0, 80, (b, t, c))
+    hi = lo + 20
+    lo[rng.random((b, t, c)) < 0.5] = -np.inf
+    hi[rng.random((b, t, c)) < 0.5] = np.inf
+    return (torch.as_tensor(lo, device=device),
+            torch.as_tensor(hi, device=device))
+
+
+def projection_space(data, num_states: int, partitions: int, rng) -> list:
+    """S layouts that each sort the table along a random projection and
+    cut it into equal partitions (benchmarks/bench_fleet.py:73-90), on the
+    table's device.  Their zone maps are exact, so each is its own
+    materialized layout."""
+    import torch
+    from repro_torch.core import layouts
+    n = len(data)
+    ranks = torch.arange(n, device=data.device) * partitions // n
+    out = []
+    for s in range(num_states):
+        proj = data @ torch.as_tensor(rng.normal(size=data.shape[1]),
+                                      device=data.device)
+        assignment = torch.empty_like(ranks)
+        assignment[torch.argsort(proj, stable=True)] = ranks
+        del proj
+        meta = layouts.metadata_from_assignment(data, assignment, partitions)
+        out.append(layouts.Layout(layout_id=s, name=f"synthetic-{s}",
+                                  technique="synthetic", meta=meta))
+    return out
+
+
+def selective_events(tables: dict, queries: int) -> list:
+    """Selective conjunctive range queries bounding every column of each
+    tenant's table at selectivity 0.1, round robin over the tenants
+    (benchmarks/bench_fleet.py:132-145, 153-161)."""
+    import numpy as np
+    from repro_torch.core import workload as wl
+    per = {}
+    for i, (tid, data) in enumerate(sorted(tables.items())):
+        col_lo, col_hi = (data.amin(0).cpu().numpy(),
+                          data.amax(0).cpu().numpy())
+        rng = np.random.default_rng(FLEET_SEED + i)
+        span = col_hi - col_lo
+        width = span * 0.1
+        per[tid] = []
+        for _ in range(queries):
+            start = col_lo + rng.uniform(0, 1, len(span)) * (span - width)
+            per[tid].append(wl.Query(lo=start, hi=start + width))
+    return [wl.QueryEvent(tid, per[tid][k]) for k in range(queries)
+            for tid in sorted(tables)]
+
+
+def cell_fleet64(device, rows: int = SF1_ROWS, tenants: int = 64,
+                 queries: int = 300) -> dict:
+    """fleet64-sf1-threshold: 64 threshold tenants (0.05, alpha 10) over 8
+    projection-sorted layouts of P 8 each, scored in one pass
+    (benchmarks/bench_fleet.py tenant sweep, T = 64: 10 columns, 8 states,
+    8 partitions, 300 queries per tenant), on both lanes."""
+    import numpy as np
+    import torch
+    from repro_torch import engine
+    name = "fleet64-sf1-threshold"
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    tables = fleet_tables(device, tenants, rows, 10)
+    torch.cuda.synchronize()
+    table_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spaces = {tid: projection_space(tables[tid], 8, 8,
+                                    np.random.default_rng(FLEET_SEED + 7 * i))
+              for i, tid in enumerate(sorted(tables))}
+    torch.cuda.synchronize()
+    space_seconds = time.perf_counter() - t0
+    events = selective_events(tables, queries)
+    launches, traces = {}, {}
+    for lane in ("fleet_scan", "decision_fused"):
+        t0 = time.perf_counter()
+        fleet = engine.FleetEngine(
+            {tid: threshold_tenant(tables[tid], 0.05, spaces[tid], delta=0)
+             for tid in sorted(tables)}, engine.UnlimitedScheduler())
+        setup = time.perf_counter() - t0
+        res, fields = run_cell(name, fleet, events, lane, device)
+        traces[lane] = fleet_trace(res)
+        launches[lane] = fields["launches"]
+        extra = {}
+        if lane == "decision_fused":
+            fm = fleet.fleet_matrix
+            extra["kernels_at_final_plane"] = time_fleet_kernels(
+                device, *fleet_frames(fm, device), fm._mins, fm._maxs)
+        emit("fleet_full", cell=name, tenants=tenants, rows=rows, columns=10,
+             states=8, partitions=8, queries_per_tenant=queries,
+             threshold=0.05, scheduler="unlimited",
+             table_bytes=sum(d.numel() * 8 for d in tables.values()),
+             table_seconds=table_seconds,
+             state_space_seconds=space_seconds, setup_seconds=setup,
+             **fields, **extra)
+    if traces["fleet_scan"] != traces["decision_fused"]:
+        raise AssertionError(f"{name}: the two lanes' traces differ")
+    emit("fleet_full", cell=name, lanes_bitwise_equal=True)
+    return launches
+
+
+def release(device) -> None:
+    """Free what the last cell left behind before the next one measures its
+    peak: a fleet and its tenants' engines hold each other (the governor),
+    so their tables go only when the cycle collector runs."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_fleet_full(device) -> dict:
+    """Both fleet cells; returns each main path's launch counts."""
+    runs = {"fleet16-sf1-oreo-k1": cell_fleet16(device)}
+    release(device)
+    for lane, counts in cell_fleet64(device).items():
+        runs[f"fleet64-sf1-threshold/{lane}"] = counts
+    release(device)
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernel,parity,full",
-                    help="comma-separated subset of kernel,parity,full")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)} "
+                         f"(env and kernel always run)")
     ap.add_argument("--queries", type=int, default=FULL_QUERIES,
                     help=f"full-width query count (>= {MIN_QUERIES})")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    unknown = phases - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
 
     import torch
     if not torch.cuda.is_available():
@@ -469,14 +1137,23 @@ def main(argv=None) -> int:
          ptxas={k: [ln for ln in v.splitlines() if "ptxas" in ln]
                 for k, v in _backend.build_logs.items()})
 
-    kernel = phase_kernel(device)
+    kernels = {"pruning": phase_kernel(device), **phase_fleet_kernels(device)}
     if "parity" in phases:
         phase_parity(device)
-    launches = None
+    if "fleet_parity" in phases:
+        phase_fleet_parity(device)
+    runs = {}
     if "full" in phases:
-        launches = phase_full(device, args.queries)
-    kernel["launches"] = launches
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+        runs["tpch-sf10-oreo"] = {"pruning": phase_full(device,
+                                                        args.queries)}
+        release(device)
+    if "fleet_full" in phases:
+        runs.update(phase_fleet_full(device))
+    for name, summary in kernels.items():
+        summary["launches"] = (sum(r.get(name, 0) for r in runs.values())
+                               if runs else None)
+    emit("launches", per_main_path=runs)
+    print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

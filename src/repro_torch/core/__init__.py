@@ -21,16 +21,23 @@ from repro_torch.core.mts import (DynamicUMTS, theorem_iv1_bound,
                                   theorem_iv2_bound)
 from repro_torch.core.oreo import OreoConfig, RunResult
 from repro_torch.core.qdtree import build_default_layout, build_qdtree_layout
-from repro_torch.core.workload import (Query, QueryTemplate, WorkloadStream,
-                                       generate_workload, make_templates,
+from repro_torch.core.workload import (DRIFT_SCENARIOS, Event, FleetStream,
+                                       IngestEvent, Query, QueryEvent,
+                                       QueryTemplate, WorkloadStream,
+                                       as_event, generate_workload,
+                                       interleave_streams,
+                                       make_drift_scenario, make_templates,
                                        stack_queries)
 
 __all__ = [
-    "DynamicUMTS", "Layout", "LayoutManager", "LayoutManagerConfig",
-    "OreoConfig", "PartitionMetadata", "Query", "QueryTemplate", "RunResult",
-    "WorkloadStream", "build_default_layout", "build_qdtree_layout",
+    "DRIFT_SCENARIOS", "DynamicUMTS", "Event", "FleetStream", "IngestEvent",
+    "Layout", "LayoutManager", "LayoutManagerConfig",
+    "OreoConfig", "PartitionMetadata", "Query", "QueryEvent",
+    "QueryTemplate", "RunResult", "WorkloadStream", "as_event",
+    "build_default_layout", "build_qdtree_layout",
     "cost_vector", "eval_cost", "eval_cost_states", "eval_skipped",
-    "generate_workload", "layout_distance", "make_generator",
+    "generate_workload", "interleave_streams", "layout_distance",
+    "make_drift_scenario", "make_generator",
     "make_templates", "metadata_from_assignment", "partitions_scanned",
     "stack_queries", "theorem_iv1_bound", "theorem_iv2_bound",
     "layout_manager", "layouts", "mts", "oreo", "predictors", "qdtree",

@@ -1,4 +1,5 @@
-"""Online layout-optimization engine on PyTorch: loop, policies, backend.
+"""Online layout-optimization engine on PyTorch: loop, policies, backend,
+and the multi-tenant fleet.
 
     from repro_torch.engine import LayoutEngine, InMemoryBackend, OreoPolicy
 
@@ -8,18 +9,39 @@
         step = engine.step(query)          # serve + decide + maybe reorg
     trace = engine.result()
 
+    fleet = FleetEngine({"t0": engine_0, "t1": engine_1},
+                        KConcurrentScheduler(1))
+    trace = fleet.run_batched(events)      # one scan launch per pass
+
 ``data`` is the table as a float64 tensor on its device; every scan runs
 there (:mod:`repro_torch.engine.compute`).
 """
+from repro_torch.core.workload import Event, IngestEvent, QueryEvent, as_event
 from repro_torch.engine import compute
 from repro_torch.engine.backends import InMemoryBackend, StorageBackend
+from repro_torch.engine.compute import fleet_scan_matrix, scan_matrix
 from repro_torch.engine.core import LayoutEngine, StepResult
-from repro_torch.engine.policies import (Decision, GreedyPolicy, OreoPolicy,
-                                         Policy, RegretPolicy, StaticPolicy)
+from repro_torch.engine.fleet import (FleetEngine, FleetResult,
+                                      FleetStepResult)
+from repro_torch.engine.fleet_matrix import FleetMatrix
+from repro_torch.engine.policies import (BatchablePolicy, Decision,
+                                         GreedyPolicy, OreoPolicy, Policy,
+                                         RegretPolicy, StaticPolicy,
+                                         ThresholdSwitchPolicy)
+from repro_torch.engine.scheduler import (KConcurrentScheduler,
+                                          ReorgScheduler, SchedulerSpec,
+                                          TokenBucketScheduler,
+                                          UnlimitedScheduler,
+                                          as_scheduler_spec)
 from repro_torch.engine.state_matrix import StateMatrix
 
 __all__ = [
-    "Decision", "GreedyPolicy", "InMemoryBackend", "LayoutEngine",
-    "OreoPolicy", "Policy", "RegretPolicy", "StateMatrix", "StaticPolicy",
-    "StepResult", "StorageBackend", "compute",
+    "BatchablePolicy", "Decision", "Event", "FleetEngine", "FleetMatrix",
+    "FleetResult", "FleetStepResult", "GreedyPolicy", "InMemoryBackend",
+    "IngestEvent", "KConcurrentScheduler", "LayoutEngine", "OreoPolicy",
+    "Policy", "QueryEvent", "RegretPolicy", "ReorgScheduler",
+    "SchedulerSpec", "StateMatrix", "StaticPolicy", "StepResult",
+    "StorageBackend", "ThresholdSwitchPolicy", "TokenBucketScheduler",
+    "UnlimitedScheduler", "as_event", "as_scheduler_spec", "compute",
+    "fleet_scan_matrix", "scan_matrix",
 ]

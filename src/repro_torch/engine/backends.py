@@ -166,6 +166,10 @@ class InMemoryBackend(_RegistryMixin):
     #: Reserved StateMatrix id for the materialized serving layout's zone
     #: maps.  Policies must use non-negative state ids.
     SERVING_SHADOW = -1
+    #: A primed shadow-slot score is a valid serve memo: the scans are
+    #: exact on every device, so the shadow's estimate is the serve cost.
+    #: The fleet's batched path installs such scores directly.
+    _serve_primable = True
 
     def __init__(self, data: torch.Tensor):
         if not isinstance(data, torch.Tensor) or data.dtype != torch.float64:

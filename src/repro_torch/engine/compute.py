@@ -1,30 +1,51 @@
-"""The metadata plane's scan matrix: one entry point, on the zone maps' device.
+"""The metadata plane's scan matrix: the entry points, on the zone maps' device.
 
 Everything the decision loop evaluates — service-cost estimates over all
 candidate states, cost vectors over the R-TBS sample, serving — reduces to
-the (Q, P) interval-overlap *scan matrix* over C columns.  This module
-computes it where the zone maps live and hands it back to the host:
+the interval-overlap *scan matrix* over C columns.  This module computes it
+where the zone maps live and hands it back to the host:
 
-* on a CUDA device it is the hand-written kernel
-  (:func:`repro_torch.kernels.pruning.pruning.scan_matrix`), which compares
-  in float64 and is therefore exact on every input;
-* on the CPU it is the kernel's plain PyTorch version.
+* :func:`scan_matrix` / :func:`masked_overlap`: one table's (Q, P) scan,
+  the pruning kernel (:mod:`repro_torch.kernels.pruning`);
+* :func:`fleet_scan_matrix`: every tenant's query against its own packed
+  plane, one fleet-scan launch per frame
+  (:mod:`repro_torch.kernels.fleet_scan`);
+* :func:`fused_frames_scan`: a whole block of frames against the fleet
+  plane in one launch of the fused decision kernel
+  (:mod:`repro_torch.kernels.decision_fused`).
 
-Query bounds arrive as host arrays and go over in one copy; the bool scan
-matrix (a few hundred bytes per query) comes back, and every caller reduces
-it on the host with the same numpy einsum as the reference package, so
-costs are bit-identical on both devices.
+On a CUDA device each is the hand-written kernel, which compares in float64
+and is therefore exact on every input; on the CPU it is the kernel's plain
+PyTorch version.  Query bounds arrive as host arrays and go over in one
+copy per call; the bool scan comes back in one copy, and every caller
+reduces it on the host with the same numpy einsum as the reference
+package, so costs are bit-identical on both devices.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.decision_fused import decision_fused
+from repro_torch.kernels.fleet_scan import fleet_scan
 from repro_torch.kernels.pruning import pruning
 
-#: Device types the scan runs on: the kernel on ``cuda``, its plain
-#: version on ``cpu``.
-BACKENDS = ("cpu", "cuda")
+#: Device types the scans run on: the kernels on ``cuda``, their plain
+#: versions on ``cpu``.
+DEVICES = ("cpu", "cuda")
+
+#: The fleet plane's two scoring lanes, each named after the kernel it
+#: launches: ``fleet_scan`` once per frame, ``decision_fused`` once per
+#: pass of frames.
+BACKENDS = ("fleet_scan", "decision_fused")
+
+
+def _bounds(q_lo: np.ndarray, q_hi: np.ndarray,
+            device: torch.device) -> torch.Tensor:
+    """Host lo/hi bounds as one (2, ...) float64 tensor: one copy."""
+    return torch.as_tensor(np.stack([np.asarray(q_lo, dtype=np.float64),
+                                     np.asarray(q_hi, dtype=np.float64)]),
+                           device=device)
 
 
 def scan_matrix(q_lo: np.ndarray, q_hi: np.ndarray, mins: torch.Tensor,
@@ -35,9 +56,7 @@ def scan_matrix(q_lo: np.ndarray, q_hi: np.ndarray, mins: torch.Tensor,
     every column's [min, max] zone overlaps the query's [lo, hi] range.
     ``mins``/``maxs`` may be a row-strided view of a larger plane.
     """
-    bounds = torch.as_tensor(np.stack([np.asarray(q_lo, dtype=np.float64),
-                                       np.asarray(q_hi, dtype=np.float64)]),
-                             device=mins.device)
+    bounds = _bounds(q_lo, q_hi, mins.device)
     return pruning.scan_matrix(bounds[0], bounds[1], mins, maxs).cpu().numpy()
 
 
@@ -56,3 +75,40 @@ def masked_overlap(mins: torch.Tensor, maxs: torch.Tensor, q_lo: np.ndarray,
     flat_max = maxs.view(rows, maxs.shape[-1])
     out = scan_matrix(q_lo[None], q_hi[None], flat_min, flat_max)
     return out.reshape(lead)
+
+
+def fleet_scan_matrix(q_lo: np.ndarray, q_hi: np.ndarray, mins: torch.Tensor,
+                      maxs: torch.Tensor) -> np.ndarray:
+    """(T, C) per-tenant host bounds x (T, N, C) plane -> (T, N) host bool.
+
+    The fused fleet-wide scan: every tenant's slots are scored against that
+    tenant's query.  ``q_lo``/``q_hi`` may also be (B, T, C), a block of B
+    frames: the bounds go over in one copy, the kernel runs once per frame
+    and the (B, T, N) result comes back in one copy.  ``mins``/``maxs`` may
+    be a view of a larger plane (dense columns).
+    """
+    single = np.ndim(q_lo) == 2
+    bounds = _bounds(q_lo, q_hi, mins.device)
+    if single:
+        bounds = bounds[:, None]
+    frames = [fleet_scan.scan_fleet(bounds[0, k], bounds[1, k], mins, maxs)
+              for k in range(bounds.shape[1])]
+    if not frames:
+        return np.zeros((0,) + tuple(mins.shape[:2]), dtype=bool)
+    out = torch.stack(frames).cpu().numpy()
+    return out[0] if single else out
+
+
+def fused_frames_scan(q_lo: np.ndarray, q_hi: np.ndarray, p_min: torch.Tensor,
+                      p_max: torch.Tensor) -> np.ndarray:
+    """(B, T, C) host frame bounds x (T, S, P, C) plane -> (B, T, S, P)
+    host bool, C-contiguous.
+
+    One launch of the fused decision kernel scores every frame of a batched
+    pass for every tenant — the counterpart of B :func:`fleet_scan_matrix`
+    launches.
+    """
+    bounds = _bounds(q_lo, q_hi, p_min.device)
+    scan, _, _ = decision_fused.fused_decision(bounds[0], bounds[1], p_min,
+                                               p_max)
+    return scan.cpu().numpy()

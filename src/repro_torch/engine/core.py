@@ -48,9 +48,9 @@ class LayoutEngine:
     query.  Single-use and stateful: feed it one logical stream (via
     :meth:`step` or :meth:`run`) and read the trace with :meth:`result`.
 
-    The fleet's reorg governor, the incremental reorganization plane and
-    streaming ingest belong to later slices of the port; asking for them
-    raises :class:`NotImplementedError`.
+    The incremental reorganization plane and streaming ingest belong to
+    later slices of the port; asking for them raises
+    :class:`NotImplementedError`.
     """
 
     def __init__(self, policy: Policy, backend: StorageBackend,
@@ -58,18 +58,34 @@ class LayoutEngine:
                  governor: Optional[object] = None,
                  incremental: bool = False,
                  ingest: Optional[object] = None):
-        for given, what, queue in ((governor is not None, "governor", 5),
-                                   (incremental, "incremental=True", 6),
-                                   (ingest is not None, "ingest", 7)):
+        for given, what, where in (
+                (incremental, "incremental=True", "slice 3, ROADMAP.md queue "
+                 "1 item 6"),
+                (ingest is not None, "ingest", "slice 4, ROADMAP.md queue 1 "
+                 "item 7")):
             if given:
                 raise NotImplementedError(
-                    f"LayoutEngine({what}) is not ported yet (ROADMAP.md, "
-                    f"queue 1 item {queue})")
+                    f"LayoutEngine({what}) is not ported yet ({where})")
         self.policy = policy
         self.backend = backend
         self.delta = delta
         self.name = name or policy.name
         self.alpha = policy.alpha
+        #: Atomic engines only: the fleet reads these to tell the modes
+        #: apart (an incremental executor and an ingest debt meter come
+        #: with later slices).
+        self.incremental = False
+        self.reorg_executor = None
+        self._debt = None
+        #: Optional reorg governor (see :mod:`repro_torch.engine.fleet`): an
+        #: object with ``on_charge(engine, index, state_id) -> bool`` (may
+        #: physical work start now?) and ``may_apply(engine, due_index,
+        #: state_id) -> bool`` (may the due swap take effect now?).  None —
+        #: the standalone default — starts work at charge time and applies
+        #: every swap the moment it is due, i.e. the paper's single-tenant
+        #: Δ-delay semantics.  A governor can only *defer* physical work,
+        #: never advance it, so per-tenant Δ-delay bounds are preserved.
+        self.governor = governor
         self._started = False
         self._index = 0
         self._query_costs: List[float] = []
@@ -100,16 +116,32 @@ class LayoutEngine:
         """
         if decision.reorg:
             self._reorg_indices.append(i)
-            self.backend.prepare(decision.state)
+            if (self.governor is None
+                    or self.governor.on_charge(self, i, decision.state)):
+                self.backend.prepare(decision.state)
             self._pending_swaps.append((i + self.delta, decision.state))
 
     def _apply_due_swaps(self, i: int) -> None:
         """Apply every swap that is due, in charge order; a state evicted
-        while its swap was in flight is skipped."""
+        while its swap was in flight is skipped.  A due swap the governor
+        keeps deferred blocks everything queued behind it."""
         while self._pending_swaps and self._pending_swaps[0][0] <= i:
-            _, sid = self._pending_swaps.popleft()
+            due, sid = self._pending_swaps[0]
+            if (self.governor is not None
+                    and not self.governor.may_apply(self, due, sid)):
+                break
+            self._pending_swaps.popleft()
             if self.backend.has(sid):
                 self.backend.activate(sid)
+
+    @property
+    def pending_swaps(self) -> Tuple[Tuple[int, int], ...]:
+        """Charged-but-not-yet-applied swaps as (due_index, state_id)."""
+        return tuple(self._pending_swaps)
+
+    def finish_migration(self) -> None:
+        """Drive an in-flight incremental migration to completion: a no-op
+        for the atomic engine, which never has one."""
 
     def _step_core(self, query: wl.Query):
         """The decide/charge/swap/serve sequence shared by :meth:`step`

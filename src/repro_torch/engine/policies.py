@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
 from repro_torch.core import layout_manager as lm
@@ -59,6 +60,31 @@ class Policy(Protocol):
     def decide(self, index: int, query: wl.Query, backend) -> Decision: ...
 
     def info(self) -> dict: ...
+
+
+class BatchablePolicy(Policy, Protocol):
+    """A policy whose decision rule can be applied to a block of frames.
+
+    :meth:`repro_torch.engine.FleetEngine.run_batched` resolves whole
+    no-swap passes without per-event Python for fleets where every policy
+    exposes :meth:`decide_frames`.  The contract:
+
+    * **pure**: no backend mutation (register/deregister) and no policy
+      state update — the engine may discard the result and replay the same
+      events through per-event :meth:`Policy.decide` (it does so whenever
+      any row charges a reorganization, so swap frames keep the exact
+      bookkeeping path and traces stay bit-identical);
+    * **bit-identical**: row ``r`` of the result must equal the
+      :class:`Decision` that sequential ``decide`` calls would produce
+      given the same cost vectors — the rule may only depend on the costs
+      and policy state, never on the step index;
+    * ``costs`` is ``(k, n_slots)`` in :class:`StateMatrix` slot order
+      (exactly what ``backend.estimate_vector`` returns per query); the
+      returned ``states`` is ``(k,)`` decision state ids and ``reorg`` is
+      a ``(k,)`` bool mask, or ``None`` meaning "never charges".
+    """
+
+    def decide_frames(self, costs: np.ndarray, backend): ...
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +274,88 @@ class RegretPolicy:
 
     def info(self) -> dict:
         return {}
+
+
+class ThresholdSwitchPolicy:
+    """Argmin-with-hysteresis over a fixed state space, batch-decidable.
+
+    Serves from the current state and charges a reorganization to the
+    cheapest candidate whenever its estimated cost undercuts the current
+    state's by more than ``threshold``.  The rule is a pure function of
+    the packed cost vector, so it implements the
+    :class:`BatchablePolicy` contract: :meth:`decide_frames` resolves a
+    whole block of frames at once, bit-identically to sequential
+    :meth:`decide` calls.  Needs a matrix-backed backend
+    (``backend.estimate_vector``); candidate slots are the bind-order
+    registrations ``0..S-1`` (the serving shadow, if any, registers
+    after them and is never considered).
+    """
+
+    name = "threshold-switch"
+
+    def __init__(self, state_space: List[layouts.Layout], alpha: float,
+                 threshold: float = 0.0):
+        if not state_space:
+            raise ValueError("state_space must not be empty")
+        self.alpha = float(alpha)
+        self.threshold = float(threshold)
+        self.space = list(state_space)
+        self.ids = np.asarray([lay.layout_id for lay in self.space],
+                              dtype=np.int64)
+        self.num = len(self.space)
+        self._cur_slot = 0
+        self.switches = 0
+
+    def bind(self, backend) -> int:
+        for lay in self.space:
+            backend.register(lay)
+        self._cur_slot = 0
+        return int(self.ids[0])
+
+    def _switch_slot(self, costs_row: np.ndarray) -> int:
+        """Slot to switch to, or -1 to stay (one row of the pure rule)."""
+        sub = costs_row[:self.num]
+        best = int(sub.argmin())
+        if sub[best] < sub[self._cur_slot] - self.threshold:
+            return best
+        return -1
+
+    def decide(self, index: int, query: wl.Query, backend) -> Decision:
+        costs = np.asarray(backend.estimate_vector(query))
+        slot = self._switch_slot(costs)
+        if slot >= 0:
+            self._cur_slot = slot
+            self.switches += 1
+            return Decision(state=int(self.ids[slot]), reorg=True)
+        return Decision(state=int(self.ids[self._cur_slot]))
+
+    def decide_frames(self, costs: np.ndarray, backend):
+        """(k, n_slots) primed costs -> (states, reorg), no side effects.
+
+        Fast path: when no row would trigger a switch from the current
+        state (the common case between drifts), the answer is one
+        vectorized comparison.  Otherwise the sequential evolution is
+        simulated without committing — the fleet replays the pass through
+        :meth:`decide` anyway whenever any row charges.
+        """
+        sub = costs[:, :self.num]
+        k = sub.shape[0]
+        cur = self._cur_slot
+        if not (sub.min(axis=1) < sub[:, cur] - self.threshold).any():
+            return np.full(k, self.ids[cur], dtype=np.int64), None
+        states = np.empty(k, dtype=np.int64)
+        reorg = np.zeros(k, dtype=bool)
+        for r in range(k):
+            sub_r = sub[r]
+            best = int(sub_r.argmin())
+            if sub_r[best] < sub_r[cur] - self.threshold:
+                cur = best
+                reorg[r] = True
+            states[r] = self.ids[cur]
+        return states, reorg
+
+    def info(self) -> dict:
+        return {"threshold": self.threshold, "switches": self.switches}
 
 
 # ---------------------------------------------------------------------------

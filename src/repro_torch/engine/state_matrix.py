@@ -16,6 +16,7 @@ bit-identical to ``eval_cost_states`` and per-state ``eval_cost``.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -31,7 +32,7 @@ class StateMatrix:
 
     def __init__(self, device: torch.device, state_capacity: int = 8):
         self.device = torch.device(device)
-        if self.device.type not in compute.BACKENDS:
+        if self.device.type not in compute.DEVICES:
             raise ValueError(f"unsupported device: {self.device}")
         self._scap = max(int(state_capacity), 1)
         self._pcap = 0
@@ -60,6 +61,20 @@ class StateMatrix:
 
     def _remove_listener(self, listener) -> None:
         self._listeners.remove(listener)
+
+    def add_listener(self, listener) -> None:
+        """Deprecated alias of the internal ``_add_listener`` hook."""
+        warnings.warn("StateMatrix listener plumbing is internal mirror "
+                      "machinery; add_listener is now _add_listener",
+                      DeprecationWarning, stacklevel=2)
+        self._add_listener(listener)
+
+    def remove_listener(self, listener) -> None:
+        """Deprecated alias of the internal ``_remove_listener`` hook."""
+        warnings.warn("StateMatrix listener plumbing is internal mirror "
+                      "machinery; remove_listener is now _remove_listener",
+                      DeprecationWarning, stacklevel=2)
+        self._remove_listener(listener)
 
     # -- introspection --------------------------------------------------
     def __len__(self) -> int:

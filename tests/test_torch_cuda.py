@@ -1,5 +1,5 @@
-"""Tests that need a CUDA card: the hand-written kernel against its plain
-version, and the port's traces on the card against the CPU.
+"""Tests that need a CUDA card: the hand-written kernels against their
+plain versions, and the port's traces on the card against the CPU.
 
 They import neither ``jax`` nor ``repro``, so they run where only the
 port's dependencies are installed::
@@ -51,6 +51,27 @@ def operands(rng, q, p, c, f32_exact=False):
     lo[rng.random((q, c)) < 0.35] = -np.inf
     hi[rng.random((q, c)) < 0.35] = np.inf
     return lo, hi, mins, maxs
+
+
+def plane_operands(rng, b, t, s, p, c, f32_exact=False, window=0):
+    """Frames (B, T, C) and a packed plane (T, S, P, C) with +-inf bounds,
+    empty partitions, padded states, query bounds equal to zone-map ends
+    and, in every frame, one query-less tenant row of [-inf, +inf]
+    dummies; plus rows (T, S, P), inverse totals (T, S) and a (W, C)
+    window when ``window`` > 0.  ``f32_exact`` keeps every finite value on
+    a grid float32 represents exactly."""
+    lo, hi, mins, maxs = operands(rng, b * t, t * s * p, c, f32_exact)
+    lo, hi = lo.reshape(b, t, c), hi.reshape(b, t, c)
+    mins, maxs = mins.reshape(t, s, p, c), maxs.reshape(t, s, p, c)
+    if s > 1:
+        mins[:, -1, p // 2:], maxs[:, -1, p // 2:] = np.inf, -np.inf
+    if t > 1:
+        dummy = rng.integers(0, t, b)
+        lo[np.arange(b), dummy], hi[np.arange(b), dummy] = -np.inf, np.inf
+    rows = rng.integers(0, 1000, (t, s, p)).astype(np.float64)
+    inv = 1.0 / np.maximum(rows.sum(-1), 1.0)
+    w_lo, w_hi, _, _ = operands(rng, window, 1, c, f32_exact)
+    return lo, hi, mins, maxs, rows, inv, w_lo, w_hi
 
 
 def plain(lo, hi, mins, maxs):
@@ -135,3 +156,160 @@ def test_default_device_is_the_card(cuda_device):
     assert data.device.type == "cuda"
     cpu, _ = make_tpch_like(1000, seed=2, device="cpu")
     assert torch.equal(data.cpu(), cpu)
+
+
+# ---------------------------------------------------------------------------
+# The fleet kernels
+# ---------------------------------------------------------------------------
+
+def plane_on(device, mins, maxs, c_pad=0, t_step=1):
+    """The (T, S, P, C) plane on ``device``, as a view of a plane with
+    ``c_pad`` more columns and ``t_step`` times the tenants when asked."""
+    t, s, p, c = mins.shape
+    wide = torch.zeros((t * t_step, s, p, c + c_pad), dtype=torch.float64,
+                       device=device)
+    wmin, wmax = wide, wide.clone()
+    wmin[::t_step, ..., :c] = torch.as_tensor(mins, device=device)
+    wmax[::t_step, ..., :c] = torch.as_tensor(maxs, device=device)
+    return wmin[::t_step, ..., :c], wmax[::t_step, ..., :c]
+
+
+@pytest.mark.parametrize("b,t,s,p,c,c_pad,t_step", [
+    (16, 32, 8, 16, 8, 0, 1),         # fleet16 pass: T_cap x S_cap x P_cap
+    (16, 128, 12, 8, 10, 0, 1),       # fleet64 pass
+    (3, 17, 2, 65, 7, 0, 1),          # ragged everywhere
+    (2, 3, 4, 40, 0, 0, 1),           # no columns: every slot scanned
+    (1, 1, 1, 1, 1, 0, 1),            # one frame, one slot
+    (4, 6, 3, 10, 5, 2, 2),           # strided plane view
+    (1, 70_000, 1, 4, 2, 0, 1),       # tenants past a 65,535-block axis
+])
+def test_fleet_scan_kernel_matches_plain(cuda_device, b, t, s, p, c, c_pad,
+                                         t_step):
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.fleet_scan import ref as fref
+    rng = np.random.default_rng(b + t + s + p + c)
+    lo, hi, mins, maxs, *_ = plane_operands(rng, b, t, s, p, c)
+    vmin, vmax = plane_on(cuda_device, mins, maxs, c_pad, t_step)
+    vmin3, vmax3 = vmin.flatten(1, 2), vmax.flatten(1, 2)    # views
+    assert vmin3.data_ptr() == vmin.data_ptr()
+    for k in range(b):
+        q = [torch.as_tensor(a[k], device=cuda_device) for a in (lo, hi)]
+        before = fleet_scan.scan_fleet.launches
+        got = fleet_scan.scan_fleet(*q, vmin3, vmax3)
+        torch.cuda.synchronize()
+        assert fleet_scan.scan_fleet.launches == before + 1
+        want = fref.scan_fleet(*[torch.as_tensor(a) for a in (
+            lo[k], hi[k], mins.reshape(t, s * p, c),
+            maxs.reshape(t, s * p, c))])
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b,t,s,p,c,w,c_pad,t_step", [
+    (16, 32, 8, 16, 8, 0, 0, 1),      # fleet16 pass
+    (16, 128, 12, 8, 10, 80, 0, 1),   # fleet64 pass, with a window
+    (3, 17, 3, 130, 7, 5, 0, 1),      # ragged
+    (2, 3, 2, 300, 3, 2, 0, 1),       # partitions past one tile
+    (2, 4, 2, 33, 100, 3, 0, 1),      # bounds past 48 KB of shared memory
+    (2, 3, 4, 40, 0, 2, 0, 1),        # no columns
+    (1, 5, 3, 9, 4, 1, 0, 1),         # B = 1, W = 1
+    (4, 6, 3, 10, 5, 3, 2, 2),        # strided plane view
+])
+def test_decision_fused_kernel_matches_plain(cuda_device, b, t, s, p, c, w,
+                                             c_pad, t_step):
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.decision_fused import ref as dref
+    rng = np.random.default_rng(b * t + s * p + c + w)
+    lo, hi, mins, maxs, rows, inv, w_lo, w_hi = plane_operands(
+        rng, b, t, s, p, c, window=w)
+    vmin, vmax = plane_on(cuda_device, mins, maxs, c_pad, t_step)
+    dev = [torch.as_tensor(a, device=cuda_device)
+           for a in (lo, hi, rows, inv, w_lo, w_hi)]
+    window = dev[4:] if w else [None, None]
+    before = decision_fused.fused_decision.launches
+    scan, cost, freq = decision_fused.fused_decision(
+        dev[0], dev[1], vmin, vmax, dev[2], dev[3], *window)
+    again = decision_fused.fused_decision(dev[0], dev[1], vmin, vmax, dev[2],
+                                          dev[3])
+    torch.cuda.synchronize()
+    assert decision_fused.fused_decision.launches == before + 2
+    w_scan, w_cost, w_freq = dref.fused_decision(*[
+        None if a is None else torch.as_tensor(a) for a in (
+            lo, hi, mins, maxs, rows, inv,
+            w_lo if w else None, w_hi if w else None)])
+    assert torch.equal(scan.cpu(), w_scan)
+    assert torch.equal(again[0], scan) and torch.equal(again[1], cost)
+    assert torch.allclose(cost.cpu(), w_cost, rtol=1e-12, atol=0)
+    if w:
+        assert torch.equal(freq.cpu(), w_freq)
+    else:
+        assert freq is None
+
+
+def test_fleet_kernels_refuse_cuda_operands_they_cannot_take(cuda_device):
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    q = torch.zeros((2, 3, 8), **kw)
+    plane = torch.zeros((3, 2, 5, 8), **kw)
+    with pytest.raises(ValueError):                    # strided frames
+        decision_fused.fused_decision(q[..., ::2], q[..., ::2],
+                                      plane[..., :4], plane[..., :4])
+    with pytest.raises(ValueError):                    # column stride 2
+        decision_fused.fused_decision(q[..., :4], q[..., :4],
+                                      plane[..., ::2], plane[..., ::2])
+    with pytest.raises(ValueError):                    # mixed devices
+        decision_fused.fused_decision(q, q, plane, plane.cpu())
+    wide = torch.zeros((1, 1, 1, 500), **kw)           # past shared memory
+    with pytest.raises(ValueError, match="columns"):
+        decision_fused.fused_decision(torch.zeros((1, 1, 500), **kw),
+                                      torch.zeros((1, 1, 500), **kw),
+                                      wide, wide)
+    flat = plane.reshape(3, 10, 8)
+    with pytest.raises(ValueError):                    # strided queries
+        fleet_scan.scan_fleet(q[0, :, ::2], q[0, :, ::2], flat[..., :4],
+                              flat[..., :4])
+    with pytest.raises(ValueError):                    # column stride 2
+        fleet_scan.scan_fleet(q[0, :, :4], q[0, :, :4], flat[..., ::2],
+                              flat[..., ::2])
+
+
+def test_fleet_lanes_reach_the_kernels_and_equal_the_cpu(cuda_device):
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    rng = np.random.default_rng(2)
+    tables = {f"t{t}": rng.uniform(0, 100, size=(4_000, 6)) for t in
+              range(3)}
+    lo = np.min([d.min(0) for d in tables.values()], axis=0)
+    hi = np.max([d.max(0) for d in tables.values()], axis=0)
+    stream = core.make_drift_scenario("sudden_shift", lo, hi, num_tenants=3,
+                                      queries_per_tenant=90, seed=7)
+
+    def fleet(dev):
+        engines = {}
+        for tid, table in tables.items():
+            data = torch.as_tensor(table, device=dev)
+            cfg = core.OreoConfig(alpha=10.0, seed=2, delta=5, manager=core.
+                                  LayoutManagerConfig(target_partitions=8,
+                                                      window_size=60,
+                                                      gen_every=30))
+            engines[tid] = engine.LayoutEngine(engine.OreoPolicy(
+                data, core.build_default_layout(0, data, 8),
+                core.make_generator("qdtree"), cfg),
+                engine.InMemoryBackend(data), delta=cfg.delta)
+        return engine.FleetEngine(engines, engine.KConcurrentScheduler(1))
+    cpu = fleet(torch.device("cpu")).run(stream)
+    assert cpu.num_reorgs > 0
+    for lane, counter in (("fleet_scan", fleet_scan.scan_fleet),
+                          ("decision_fused", decision_fused.fused_decision)):
+        before = counter.launches
+        card = fleet(cuda_device).run_batched(stream, compute=lane)
+        assert counter.launches > before
+        for tid in stream.tenant_ids:
+            a, b = card.per_tenant[tid], cpu.per_tenant[tid]
+            assert np.array_equal(a.query_costs, b.query_costs)
+            assert a.reorg_indices == b.reorg_indices
+            assert np.array_equal(a.state_seq, b.state_seq)
+        assert (card.swaps_deferred, card.deferred_ticks,
+                card.scheduler_stats) == (cpu.swaps_deferred,
+                                          cpu.deferred_ticks,
+                                          cpu.scheduler_stats)

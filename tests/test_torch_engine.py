@@ -239,7 +239,7 @@ def test_backend_serving_memo_priming_and_blocks(bench):
         te.InMemoryBackend(data)
 
 
-@pytest.mark.parametrize("kw", [{"governor": object()},
+@pytest.mark.parametrize("kw", [{"governor": object(), "incremental": True},
                                 {"incremental": True}, {"ingest": object()}])
 def test_later_slices_raise_not_implemented(bench, kw):
     data, stream = bench
