@@ -4,17 +4,19 @@
     python3 chip_smoke.py                  # every phase, as the check runs it
     python3 chip_smoke.py --phases kernel  # environment + kernel phase only
     python3 chip_smoke.py --phases kernel,fleet_parity,fleet_full
+    python3 chip_smoke.py --phases kernel,reorg_parity,reorg_full
 
 Phases, each printing JSON lines:
 
 1. ``env``: the card's name and power limit, torch and CUDA versions, and
    the build of every kernel from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together, for sm_90a).
-2. ``kernel``: each kernel (pruning, fleet_scan, decision_fused) against its
-   plain PyTorch version on the card, at the shapes the main paths give it
-   plus ragged and edge shapes, with CUDA-event times and the least time
-   the card could take (bound).  Scans and ``freq`` must be exact, ``cost``
-   within rel 1e-12.
+2. ``kernel``: each kernel (pruning, fleet_scan, decision_fused,
+   move_score) against its plain PyTorch version on the card, at the
+   shapes the main paths give it plus ragged and edge shapes, with
+   CUDA-event times and the least time the card could take (bound).
+   Scans, ``freq`` and move scores must be exact, ``cost`` within rel
+   1e-12.
 3. ``parity``: the single-table loop at 20,000 rows x 8 columns and 1,500
    queries under OREO, Static, Greedy and Regret, on the card and on the
    CPU; the traces must be bitwise equal.
@@ -31,11 +33,24 @@ Phases, each printing JSON lines:
    queries per tenant) and the ``fleet64-sf1-threshold`` cell (64 threshold
    tenants of 6,001,215 x 10, 8 projection-sorted layouts each, 300
    selective queries per tenant, both lanes, whose traces must be equal).
+7. ``reorg_parity``: the incremental reorganization plane, card against
+   CPU: unbounded incremental fleets equal to atomic ones (3 tenants of
+   20,000 x 8, five scenarios x three schedulers), ``run`` and
+   ``run_batched`` on both lanes with both planner lanes at 150 rows per
+   tick and unbounded, a row-denominated token bucket, a standalone engine
+   at 137 rows per tick, and ``DiskBackend`` (5,000 x 4, atomic,
+   incremental and tight, writer thread off and on); every trace, counter
+   and migration ledger bitwise equal.
+8. ``reorg_full``: the ``fleet16-sf1-oreo-incr-bucket`` cell -- 16 OREO
+   tenants of 6,001,215 x 8 sharing one maintenance budget, four arms
+   (atomic and incremental, unlimited and a token bucket of 0.002 swaps or
+   0.002 x 6,001,215 rows per tick); the unlimited arms must be equal and
+   every completed migration ledger must close on alpha.
 
 Kernel launch counts are reset just before each main path and read just
-after it; every 50th (fleet) or 100th (single table) scoring call of a
-main path is checked against the plain version on CPU copies of the same
-plane.  Then the kernels' summary line, the card line, and as the last
+after it; every 50th (fleet) or 100th (single table) scoring call, and
+every 50th planning call, of a main path is checked against the plain
+version on CPU copies of the same plane.  Then the kernels' summary line, the card line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device the script exits 2 before printing any
 result.
@@ -66,7 +81,8 @@ PARTITIONS = 32
 
 SF1_ROWS = 6_001_215          # TPC-H lineitem cardinality at SF 1
 FLEET_SEED = 100              # benchmarks/bench_fleet.py: tenant tables
-PHASES = ("kernel", "parity", "fleet_parity", "full", "fleet_full")
+PHASES = ("kernel", "parity", "fleet_parity", "full", "fleet_full",
+          "reorg_parity", "reorg_full")
 
 
 def emit(phase: str, **fields) -> None:
@@ -737,6 +753,222 @@ class ScanAudit:
                                  f"version on the same plane")
 
 
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.move_score import move_score
+    from repro_torch.kernels.pruning import pruning
+    return {"pruning": pruning.scan_matrix,
+            "fleet_scan": fleet_scan.scan_fleet,
+            "decision_fused": decision_fused.fused_decision,
+            "move_score": move_score.move_scores}
+
+
+class PlanAudit:
+    """Checks the first and then every ``every``-th planning call of a
+    run, inside the run.
+
+    Wraps the two compute entry points the migration planner scores its
+    window through: the frequencies the main path's own launch returned
+    are held against the plain version on CPU copies of the same window
+    and plane, exactly.  It launches nothing itself.
+    """
+
+    def __init__(self, every: int):
+        from repro_torch.engine import compute
+        self.compute, self.every = compute, every
+        self.calls = self.checked = 0
+        self._move, self._fused = (compute.move_frequencies,
+                                   compute.fused_window_freq)
+        compute.move_frequencies = self._wrap(self._move, fused=False)
+        compute.fused_window_freq = self._wrap(self._fused, fused=True)
+
+    def close(self) -> None:
+        self.compute.move_frequencies = self._move
+        self.compute.fused_window_freq = self._fused
+
+    def _wrap(self, inner, fused: bool):
+        def call(q_lo, q_hi, mins, maxs):
+            got = inner(q_lo, q_hi, mins, maxs)
+            self.calls += 1
+            if (self.calls - 1) % self.every == 0:
+                self.check(q_lo, q_hi, mins, maxs, got, fused)
+                self.checked += 1
+            return got
+        return call
+
+    def check(self, q_lo, q_hi, mins, maxs, got, fused: bool) -> None:
+        import numpy as np
+        import torch
+        from repro_torch.kernels.move_score import ref as mref
+        lo, hi = torch.as_tensor(q_lo), torch.as_tensor(q_hi)
+        cmin, cmax = mins.cpu(), maxs.cpu()
+        if fused:
+            want = np.stack([mref.move_scores(lo, hi, cmin[t], cmax[t])
+                             .numpy() for t in range(cmin.shape[0])])
+        else:
+            want = mref.move_scores(lo, hi, cmin, cmax).numpy()
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"the kernel's frequencies of planning call "
+                                 f"{self.calls} differ from the plain "
+                                 f"version on the same plane")
+
+
+# ---------------------------------------------------------------------------
+# The move-score kernel
+# ---------------------------------------------------------------------------
+
+def move_bound(q: int, s: int, p: int, c: int) -> dict:
+    """Least time for a (Q, C) window against an (S, P, C) plane: the plane
+    and window read once, the (S, P) float64 result written once; 3
+    float64 operations per (q, s, p, c)."""
+    nbytes = (2 * s * p * c + 2 * q * c + s * p) * 8
+    ops = 3 * q * s * p * c
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def window_operands(rng, q: int, s: int, p: int, c: int, identity: bool):
+    """A (Q, C) window and an (S, P, C) plane as the planner gives them:
+    empty partitions and padding of [+inf, -inf], window bounds of +-inf
+    and bounds equal to zone-map ends; ``identity`` makes half the
+    partitions identity rows and half the window rows [-inf, +inf]."""
+    import numpy as np
+    mins = rng.uniform(0, 100, (s, p, c))
+    maxs = mins + rng.uniform(0, 30, (s, p, c))
+    empty = rng.random((s, p)) < (0.5 if identity else 0.15)
+    mins[empty], maxs[empty] = np.inf, -np.inf
+    mins[:, p - p // 4:], maxs[:, p - p // 4:] = np.inf, -np.inf   # padding
+    lo = rng.uniform(-10, 110, (q, c))
+    hi = lo + rng.uniform(0, 60, (q, c))
+    if s * p and c:
+        pick = rng.integers(0, s * p, (q, c))
+        flat_min, flat_max = mins.reshape(-1, c), maxs.reshape(-1, c)
+        cols = np.broadcast_to(np.arange(c), (q, c))
+        at_min = rng.random((q, c)) < 0.2
+        at_max = rng.random((q, c)) < 0.2
+        hi[at_min] = flat_min[pick, cols][at_min]
+        lo[at_max] = flat_max[pick, cols][at_max]
+    lo[rng.random((q, c)) < 0.35] = -np.inf
+    hi[rng.random((q, c)) < 0.35] = np.inf
+    if identity:
+        lo[::2], hi[::2] = -np.inf, np.inf
+    return lo, hi, mins, maxs
+
+
+#: (name, Q, S, P, C, row_pad, identity).  The first is the planning
+#: shape of the fleet cells (2 layouts of P 16, C 8, a 64-query window),
+#: the second the single-table cell's (P 32, C 32).
+MOVE_SHAPES = [
+    ("fleet plan 64 x 2 x 16 x 8", 64, 2, 16, 8, 0, False),
+    ("single-table plan 64 x 2 x 32 x 32", 64, 2, 32, 32, 0, False),
+    ("one query", 1, 2, 16, 8, 0, False),
+    ("ragged P 37", 64, 2, 37, 8, 0, False),
+    ("ragged P 130", 64, 2, 130, 8, 0, False),
+    ("wide S 4096", 64, 4096, 16, 8, 0, False),
+    ("strided plane view", 64, 2, 32, 32, 3, False),
+    ("+-inf rows", 64, 2, 16, 8, 0, True),
+    ("window past 48 KB of shared memory", 200, 2, 33, 100, 0, False),
+    ("zero columns", 9, 2, 20, 0, 0, False),
+]
+
+
+def phase_move_score_kernel(device) -> dict:
+    """move_score against its plain version over MOVE_SHAPES (exactly
+    equal); times at the two planning shapes, and the fused decision
+    kernel's freq-only launch at the fleet's; returns the kernel's summary
+    at the fleet planning shape."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _backend
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.move_score import move_score, ref as mref
+    rng = np.random.default_rng(2)
+    lib = move_score._lib()
+    stream = _backend.stream_handle(device)
+    results = []
+    for name, q, s, p, c, pad, identity in MOVE_SHAPES:
+        lo, hi, mins, maxs = window_operands(rng, q, s, p, c, identity)
+        wmin = torch.zeros((s, p, c + pad), dtype=torch.float64,
+                           device=device)
+        wmax = torch.zeros_like(wmin)
+        wmin[..., :c] = torch.as_tensor(mins, device=device)
+        wmax[..., :c] = torch.as_tensor(maxs, device=device)
+        vmin, vmax = wmin[..., :c], wmax[..., :c]
+        dlo, dhi = (torch.as_tensor(a, device=device) for a in (lo, hi))
+        got = move_score.move_scores(dlo, dhi, vmin, vmax)
+        want = mref.move_scores(dlo, dhi, vmin, vmax)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        row = {"shape": name, "q": q, "s": s, "p": p, "c": c,
+               "plane_strides": list(vmin.stride()),
+               "equal": bool(torch.equal(got, want)), "max_abs_err": err}
+        if not row["equal"]:
+            emit("kernel", kernel="move_score", **row)
+            raise AssertionError(f"move_score disagrees with its plain "
+                                 f"version at {name}: {row}")
+        if len(results) < 2:
+            out = torch.empty((s, p), dtype=torch.float64, device=device)
+
+            def raw():
+                lib.move_score(dlo.data_ptr(), dhi.data_ptr(),
+                               vmin.data_ptr(), vmax.data_ptr(),
+                               vmin.stride(0), vmin.stride(1),
+                               out.data_ptr(), q, s, p, c, stream)
+            row.update({
+                "ms": cuda_time_ms(raw, 200),
+                "wrapper_ms": cuda_time_ms(lambda: move_score.move_scores(
+                    dlo, dhi, vmin, vmax), 200),
+                "plain_ms": cuda_time_ms(lambda: mref.move_scores(
+                    dlo, dhi, vmin, vmax), 200),
+                **move_bound(q, s, p, c)})
+        if len(results) == 0:
+            # The planner's other lane: one fused decision launch with no
+            # frames and the window's freq only, over the (1, S, P, C)
+            # plane.
+            frames = torch.empty((0, 1, c), dtype=torch.float64,
+                                 device=device)
+            freq = torch.empty((1, s, p), dtype=torch.float64, device=device)
+            dlib = decision_fused._lib()
+            pmin, pmax = vmin[None], vmax[None]
+
+            def raw_fused():
+                dlib.decision_fused(
+                    frames.data_ptr(), frames.data_ptr(), pmin.data_ptr(),
+                    pmax.data_ptr(), pmin.stride(0), pmin.stride(1),
+                    pmin.stride(2), None, None, dlo.data_ptr(),
+                    dhi.data_ptr(), None, None, freq.data_ptr(), 0, 1, s,
+                    p, c, q, stream)
+            fused = decision_fused.fused_decision(
+                frames, frames, pmin, pmax, w_lo=dlo, w_hi=dhi,
+                emit_scan=False)[2]
+            torch.cuda.synchronize()
+            if not torch.equal(fused[0], want):
+                raise AssertionError("decision_fused's freq-only launch "
+                                     "differs from move_score's plain "
+                                     "version")
+            row["decision_fused_freq_only"] = {
+                "ms": cuda_time_ms(raw_fused, 200),
+                "wrapper_ms": cuda_time_ms(
+                    lambda: decision_fused.fused_decision(
+                        frames, frames, pmin, pmax, w_lo=dlo, w_hi=dhi,
+                        emit_scan=False), 200),
+                **plane_bound(0, 1, s * p, c, w=q)}
+        results.append(row)
+        emit("kernel", kernel="move_score.move_scores", **row)
+    main = results[0]
+    return {"name": "move_score.move_scores", "route": "cuda",
+            "source": "src/repro_torch/csrc/move_score.cu",
+            "replaces": "src/repro/kernels/move_score/move_score.py:91",
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
 # The fleet: parity card against CPU, and the full-width cells
 # ---------------------------------------------------------------------------
@@ -754,9 +986,10 @@ def fleet_schedulers():
 
 
 def oreo_tenant(data, alpha: float, delta: int, partitions: int, seed: int,
-                window: int, gen_every: int):
+                window: int, gen_every: int, backend=None, **engine_kw):
     """One OREO tenant engine over ``data`` (benchmarks/bench_fleet.py's
-    tenant_engine)."""
+    tenant_engine); ``engine_kw`` reaches ``LayoutEngine`` (incremental
+    mode, row budget, planner lane)."""
     from repro_torch import core, engine
     cfg = core.OreoConfig(alpha=alpha, seed=seed, delta=delta,
                           manager=core.LayoutManagerConfig(
@@ -764,8 +997,8 @@ def oreo_tenant(data, alpha: float, delta: int, partitions: int, seed: int,
                               window_size=window, gen_every=gen_every))
     policy = engine.OreoPolicy(data, core.build_default_layout(
         0, data, partitions), core.make_generator("qdtree"), cfg)
-    return engine.LayoutEngine(policy, engine.InMemoryBackend(data),
-                               delta=cfg.delta)
+    return engine.LayoutEngine(policy, backend or engine.InMemoryBackend(data),
+                               delta=cfg.delta, **engine_kw)
 
 
 def threshold_tenant(data, threshold: float, space=None, delta: int = 2):
@@ -888,14 +1121,10 @@ def run_cell(name: str, fleet, events, lane: str, device) -> tuple:
     first and every 50th pass audited; returns (result, line fields)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.decision_fused import decision_fused
-    from repro_torch.kernels.fleet_scan import fleet_scan
-    from repro_torch.kernels.pruning import pruning
-    counters = {"pruning": pruning.scan_matrix,
-                "fleet_scan": fleet_scan.scan_fleet,
-                "decision_fused": decision_fused.fused_decision}
+    counters = kernel_counters()
     passes = PassCounter(fleet)
     audit = ScanAudit(every=50)
+    plans = PlanAudit(every=50)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     for c in counters.values():
@@ -906,6 +1135,7 @@ def run_cell(name: str, fleet, events, lane: str, device) -> tuple:
         torch.cuda.synchronize()
     finally:
         audit.close()
+        plans.close()
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     for tid, r in res.per_tenant.items():
@@ -919,6 +1149,9 @@ def run_cell(name: str, fleet, events, lane: str, device) -> tuple:
     if audit.checked < -(-audit.calls // 50):
         raise AssertionError(f"{name}: only {audit.checked} of "
                              f"{audit.calls} passes were audited")
+    if plans.checked < -(-plans.calls // 50):
+        raise AssertionError(f"{name}: only {plans.checked} of "
+                             f"{plans.calls} planning calls were audited")
     fm = fleet.fleet_matrix
     return res, {
         "lane": lane, "events": len(events), "run_wall_seconds": wall,
@@ -927,7 +1160,8 @@ def run_cell(name: str, fleet, events, lane: str, device) -> tuple:
         "reorg_seconds": res.reorg_seconds,
         "serve_seconds": res.serve_seconds,
         "launches": launches, "passes_scored": audit.calls,
-        "passes_audited": audit.checked, "bulk_passes": passes.bulk,
+        "passes_audited": audit.checked, "planning_calls": plans.calls,
+        "planning_calls_audited": plans.checked, "bulk_passes": passes.bulk,
         "replayed_passes": passes.replayed,
         "plane_shape": [fm._tcap, fm.state_capacity,
                         fm.partition_capacity, fm.num_columns],
@@ -1107,6 +1341,266 @@ def phase_fleet_full(device) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# The incremental reorganization plane
+# ---------------------------------------------------------------------------
+
+def engine_ledgers(engine) -> tuple:
+    """An engine's MigrationRecords, ledgers included (none if atomic)."""
+    ex = engine.reorg_executor
+    return () if ex is None else tuple(
+        (m.target_state, m.charged_at, m.begun_at, m.completed_at, m.alpha,
+         m.total_rows, m.moved_rows, m.moves_total, m.moves_done,
+         tuple(m.charges), m.charged) for m in ex.migrations)
+
+
+def run_trace(res) -> tuple:
+    """Everything of one engine's RunResult that must be bitwise equal."""
+    return (res.query_costs.tobytes(), tuple(res.reorg_indices),
+            res.state_seq.tobytes())
+
+
+def phase_reorg_parity(device, rows: int = 20_000, queries: int = 120,
+                       disk_rows: int = 5_000) -> dict:
+    """Card against CPU over the incremental plane (tests/test_reorg.py's
+    goldens); returns the card's launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import core, engine
+    cpu = torch.device("cpu")
+    counters = kernel_counters()
+    launched = {k: 0 for k in counters}
+    tables = {f"t{t}": np.random.default_rng(FLEET_SEED + t).uniform(
+        0, 100, size=(rows, 8)) for t in range(3)}
+    lo = np.min([d.min(0) for d in tables.values()], axis=0)
+    hi = np.max([d.max(0) for d in tables.values()], axis=0)
+    data = {dev.type: {tid: torch.as_tensor(d, device=dev)
+                       for tid, d in tables.items()}
+            for dev in (device, cpu)}
+    t0 = time.perf_counter()
+
+    def counted(dev, fn):
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn()
+        for k, c in counters.items():
+            if dev.type == "cuda":
+                launched[k] += c.launches - before[k]
+            elif c.launches != before[k]:
+                raise AssertionError("reorg_parity: a CPU run launched a "
+                                     "kernel")
+        return out
+
+    def fleet_run(dev, stream, sched, incremental, rpt=None, mode="run",
+                  planner="move_score"):
+        kw = ({"incremental": True, "rows_per_tick": rpt,
+               "reorg_compute": planner} if incremental else {})
+        fleet = engine.FleetEngine(
+            {tid: oreo_tenant(data[dev.type][tid], 10.0, 5, 8, 2, 60, 30,
+                              **kw)
+             for tid in stream.tenant_ids}, sched)
+        res = counted(dev, lambda: fleet.run(stream) if mode == "run"
+                      else fleet.run_batched(stream, compute=mode))
+        return fleet_trace(res), tuple(
+            (tid, engine_ledgers(fleet.tenant(tid)))
+            for tid in fleet.tenant_ids)
+
+    def same(label, runs):
+        want = runs[0]
+        bad = [k for k, v in enumerate(runs) if v != want]
+        if bad:
+            emit("reorg_parity", case=label, bitwise_equal=False, differ=bad)
+            raise AssertionError(f"reorg_parity: {label}: runs {bad} differ")
+
+    # 1. Unbounded incremental == atomic, card == CPU: 5 scenarios x 3
+    #    schedulers (tests/test_reorg.py:201-233).
+    for scenario in FLEET_SCENARIOS:
+        stream = core.make_drift_scenario(scenario, lo, hi, num_tenants=3,
+                                          queries_per_tenant=queries, seed=7)
+        for sname, sched in fleet_schedulers().items():
+            runs = {}
+            for label, dev in (("card", device), ("host", cpu)):
+                runs[label, "atomic"] = fleet_run(dev, stream, sched(),
+                                                  False)
+                runs[label, "incr"] = fleet_run(dev, stream, sched(), True)
+            same(f"{scenario}/{sname}: incremental vs atomic",
+                 [runs[k][0] for k in runs])
+            same(f"{scenario}/{sname}: ledgers card vs CPU",
+                 [runs["card", "incr"][1], runs["host", "incr"][1]])
+            for tid, migs in runs["card", "incr"][1]:
+                for m in migs:     # completed_at == begun_at, charged == alpha
+                    if not (m[3] == m[2] and m[10] == m[4]):
+                        raise AssertionError(f"reorg_parity: {scenario}/"
+                                             f"{sname}: {tid} migration "
+                                             f"not atomic or not on alpha")
+    emit("reorg_parity", case="incremental == atomic, 5 x 3",
+         bitwise_equal=True, seconds=time.perf_counter() - t0)
+    # 2. run and run_batched on both lanes, rows_per_tick None and 150
+    #    (tests/test_reorg.py:236-255); both planner lanes.
+    stream = core.make_drift_scenario("sudden_shift", lo, hi, num_tenants=3,
+                                      queries_per_tenant=queries, seed=3)
+    for rpt in (None, 150):
+        runs = [fleet_run(cpu, stream, engine.UnlimitedScheduler(), True,
+                          rpt)]
+        for mode in ("run", "fleet_scan", "decision_fused"):
+            for planner in ("move_score", "decision_fused"):
+                runs.append(fleet_run(device, stream,
+                                      engine.UnlimitedScheduler(), True,
+                                      rpt, mode, planner))
+        same(f"rows_per_tick={rpt}: run/run_batched x lanes x planners",
+             runs)
+    # 3. A row-denominated token bucket.
+    runs = [fleet_run(dev, stream, engine.TokenBucketScheduler(
+        rate=40.0, capacity=2000.0, initial=0.0, rows_per_token=1.0), True,
+        None, "decision_fused") for dev in (device, cpu)]
+    same("token bucket rows_per_token=1", runs)
+    emit("reorg_parity", case="run/run_batched, budgets, planner lanes",
+         bitwise_equal=True, seconds=time.perf_counter() - t0)
+    # 4. A standalone engine at 137 rows per tick, both planner lanes
+    #    (tests/test_reorg.py:312-331).
+    rng = np.random.default_rng(6)
+    table = rng.uniform(0, 100, size=(rows, 5))
+    single = core.generate_workload(core.make_templates(2, 5, rng),
+                                    table.min(0), table.max(0),
+                                    total_queries=10 * queries // 6, seed=1,
+                                    segment_length=(60, 90))
+    runs = []
+    for dev, planner in ((cpu, "move_score"), (device, "move_score"),
+                         (device, "decision_fused")):
+        eng = oreo_tenant(torch.as_tensor(table, device=dev), 10.0, 5, 8, 2,
+                          60, 30, incremental=True, rows_per_tick=137,
+                          reorg_compute=planner)
+        res = counted(dev, lambda: eng.run(single))
+        runs.append((run_trace(res), engine_ledgers(eng)))
+    same("standalone rows_per_tick=137", runs)
+    if not any(m[3] > m[2] for m in runs[0][1]):
+        raise AssertionError("reorg_parity: 137 rows per tick spread no "
+                             "migration over several steps")
+    # 5. DiskBackend, writer thread off and on: atomic, incremental and a
+    #    tight budget (tests/test_reorg.py:273-309).
+    rng = np.random.default_rng(1)
+    disk_table = rng.uniform(0, 100, size=(disk_rows, 4))
+    disk_stream = core.generate_workload(
+        core.make_templates(2, 4, rng), disk_table.min(0),
+        disk_table.max(0), total_queries=80, seed=2,
+        segment_length=(30, 50))
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for background in (False, True):
+            for mode, kw in (("atomic", {}),
+                             ("incremental", {"incremental": True}),
+                             ("tight", {"incremental": True,
+                                        "rows_per_tick": 1000})):
+                runs = []
+                for label, dev in (("card", device), ("host", cpu)):
+                    tdata = torch.as_tensor(disk_table, device=dev)
+                    root = str(Path(tmp) / f"{mode}-{background}-{label}")
+                    backend = engine.DiskBackend(tdata, root,
+                                                 background=background)
+                    eng = oreo_tenant(tdata, 8.0, 6, 6, 1, 30, 15,
+                                      backend=backend, **kw)
+                    res = counted(dev, lambda: eng.run(disk_stream))
+                    backend.close()
+                    runs.append((run_trace(res), engine_ledgers(eng)))
+                same(f"DiskBackend {mode} background={background}", runs)
+    emit("reorg_parity", case="DiskBackend atomic/incremental/tight x "
+         "writer thread off/on", bitwise_equal=True,
+         seconds=time.perf_counter() - t0)
+    if not (launched["move_score"] and launched["decision_fused"]):
+        raise AssertionError(f"reorg_parity: the card runs did not launch "
+                             f"both planner kernels: {launched}")
+    emit("reorg_parity", launches_card=launched,
+         seconds=time.perf_counter() - t0)
+    return launched
+
+
+REORG_RATE = 0.002            # benchmarks/bench_reorg.py: bucket_rate
+
+
+def cell_reorg(device, rows: int = SF1_ROWS, tenants: int = 16,
+               queries: int = 1_000) -> dict:
+    """fleet16-sf1-oreo-incr-bucket: 16 OREO tenants sharing one
+    row-denominated maintenance budget (benchmarks/bench_reorg.py:54-75,
+    180-198, BENCH_reorg.json config: alpha 10, delta 10, P 16, window
+    80, gen_every 40, sudden_shift seed 7, 1,000 queries per tenant, bucket
+    rate 0.002), in four arms over the same tables; returns each arm's
+    launches."""
+    import torch
+    from repro_torch import core, engine
+    name = "fleet16-sf1-oreo-incr-bucket"
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    tables = fleet_tables(device, tenants, rows, 8)
+    torch.cuda.synchronize()
+    table_seconds = time.perf_counter() - t0
+    lo = torch.stack([d.amin(0) for d in tables.values()]).amin(0)
+    hi = torch.stack([d.amax(0) for d in tables.values()]).amax(0)
+    stream = core.make_drift_scenario("sudden_shift", lo.cpu().numpy(),
+                                      hi.cpu().numpy(), num_tenants=tenants,
+                                      queries_per_tenant=queries, seed=7)
+    emit("reorg_full", cell=name, tenants=tenants, rows=rows, columns=8,
+         queries_per_tenant=queries, scenario="sudden_shift",
+         table_bytes=sum(d.numel() * 8 for d in tables.values()),
+         table_seconds=table_seconds,
+         row_budget_per_tick=REORG_RATE * rows)
+    arms = {
+        "atomic/unlimited": (False, engine.UnlimitedScheduler),
+        "incremental/unlimited": (True, engine.UnlimitedScheduler),
+        "atomic/bucket": (False, lambda: engine.TokenBucketScheduler(
+            rate=REORG_RATE, capacity=1.0, initial=0.0)),
+        "incremental/bucket": (True, lambda: engine.TokenBucketScheduler(
+            rate=REORG_RATE * rows, capacity=float(rows), initial=0.0,
+            rows_per_token=1.0)),
+    }
+    launches, traces, results = {}, {}, {}
+    for arm, (incremental, sched) in arms.items():
+        kw = ({"incremental": True, "reorg_compute": "move_score"}
+              if incremental else {})
+        t0 = time.perf_counter()
+        fleet = engine.FleetEngine(
+            {tid: oreo_tenant(tables[tid], 10.0, 10, 16, 0, 80, 40, **kw)
+             for tid in stream.tenant_ids}, sched())
+        setup = time.perf_counter() - t0
+        res, fields = run_cell(f"{name} {arm}", fleet, stream.events,
+                               "decision_fused", device)
+        ledger = {"migrations": 0, "completed": 0, "moves_done": 0,
+                  "rows_moved": 0}
+        for tid in fleet.tenant_ids:
+            ex = fleet.tenant(tid).reorg_executor
+            for m in (ex.migrations if ex is not None else ()):
+                ledger["migrations"] += 1
+                ledger["moves_done"] += m.moves_done
+                ledger["rows_moved"] += m.moved_rows
+                if m.completed_at >= 0:
+                    ledger["completed"] += 1
+                    if m.charged != m.alpha:
+                        raise AssertionError(f"{name} {arm}: {tid}'s "
+                                             f"ledger closed on {m.charged!r}"
+                                             f", not alpha {m.alpha!r}")
+        if incremental and fields["launches"]["move_score"] <= 0:
+            raise AssertionError(f"{name} {arm}: the planner never launched "
+                                 f"move_score")
+        traces[arm] = fleet_trace(res)
+        results[arm] = res
+        launches[arm] = fields["launches"]
+        emit("reorg_full", cell=name, arm=arm, setup_seconds=setup,
+             ledger=ledger, **fields)
+        del fleet, res
+        release(device)
+    if traces["incremental/unlimited"] != traces["atomic/unlimited"]:
+        raise AssertionError(f"{name}: the unlimited arms differ")
+    bucket = (results["atomic/bucket"], results["incremental/bucket"])
+    if bucket[0].total_reorg_cost != bucket[1].total_reorg_cost:
+        raise AssertionError(f"{name}: reorg cost differs between the "
+                             f"bucket arms")
+    emit("reorg_full", cell=name, unlimited_arms_bitwise_equal=True,
+         bucket_reorg_cost_equal=True,
+         atomic_over_incremental_total_cost=(bucket[0].total_cost
+                                             / bucket[1].total_cost),
+         card=card_line())
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1137,11 +1631,14 @@ def main(argv=None) -> int:
          ptxas={k: [ln for ln in v.splitlines() if "ptxas" in ln]
                 for k, v in _backend.build_logs.items()})
 
-    kernels = {"pruning": phase_kernel(device), **phase_fleet_kernels(device)}
+    kernels = {"pruning": phase_kernel(device), **phase_fleet_kernels(device),
+               "move_score": phase_move_score_kernel(device)}
     if "parity" in phases:
         phase_parity(device)
     if "fleet_parity" in phases:
         phase_fleet_parity(device)
+    if "reorg_parity" in phases:
+        phase_reorg_parity(device)
     runs = {}
     if "full" in phases:
         runs["tpch-sf10-oreo"] = {"pruning": phase_full(device,
@@ -1149,6 +1646,10 @@ def main(argv=None) -> int:
         release(device)
     if "fleet_full" in phases:
         runs.update(phase_fleet_full(device))
+    if "reorg_full" in phases:
+        for arm, counts in cell_reorg(device).items():
+            runs[f"fleet16-sf1-oreo-incr-bucket/{arm}"] = counts
+        release(device)
     for name, summary in kernels.items():
         summary["launches"] = (sum(r.get(name, 0) for r in runs.values())
                                if runs else None)

@@ -14,11 +14,19 @@ and the multi-tenant fleet.
     trace = fleet.run_batched(events)      # one scan launch per pass
 
 ``data`` is the table as a float64 tensor on its device; every scan runs
-there (:mod:`repro_torch.engine.compute`).
+there (:mod:`repro_torch.engine.compute`).  ``InMemoryBackend`` serves
+zone maps on the device; ``DiskBackend`` keeps one versioned
+:class:`repro_torch.data.PartitionStore` directory per materialized layout.
+``LayoutEngine(..., incremental=True, rows_per_tick=...)`` (and
+``FleetEngine`` over such engines) executes each reorganization as a
+planned migration of micro-moves (:mod:`repro_torch.engine.reorg`),
+serving hybrid zone maps while rows move; the planner orders the moves
+with the move-score kernel.
 """
 from repro_torch.core.workload import Event, IngestEvent, QueryEvent, as_event
 from repro_torch.engine import compute
-from repro_torch.engine.backends import InMemoryBackend, StorageBackend
+from repro_torch.engine.backends import (DiskBackend, InMemoryBackend,
+                                         StorageBackend)
 from repro_torch.engine.compute import fleet_scan_matrix, scan_matrix
 from repro_torch.engine.core import LayoutEngine, StepResult
 from repro_torch.engine.fleet import (FleetEngine, FleetResult,
@@ -28,6 +36,9 @@ from repro_torch.engine.policies import (BatchablePolicy, Decision,
                                          GreedyPolicy, OreoPolicy, Policy,
                                          RegretPolicy, StaticPolicy,
                                          ThresholdSwitchPolicy)
+from repro_torch.engine.reorg import (MicroMove, MigrationPlan,
+                                      MigrationRecord, ReorgExecutor,
+                                      plan_migration)
 from repro_torch.engine.scheduler import (KConcurrentScheduler,
                                           ReorgScheduler, SchedulerSpec,
                                           TokenBucketScheduler,
@@ -36,12 +47,13 @@ from repro_torch.engine.scheduler import (KConcurrentScheduler,
 from repro_torch.engine.state_matrix import StateMatrix
 
 __all__ = [
-    "BatchablePolicy", "Decision", "Event", "FleetEngine", "FleetMatrix",
-    "FleetResult", "FleetStepResult", "GreedyPolicy", "InMemoryBackend",
-    "IngestEvent", "KConcurrentScheduler", "LayoutEngine", "OreoPolicy",
-    "Policy", "QueryEvent", "RegretPolicy", "ReorgScheduler",
+    "BatchablePolicy", "Decision", "DiskBackend", "Event", "FleetEngine",
+    "FleetMatrix", "FleetResult", "FleetStepResult", "GreedyPolicy",
+    "InMemoryBackend", "IngestEvent", "KConcurrentScheduler", "LayoutEngine",
+    "MicroMove", "MigrationPlan", "MigrationRecord", "OreoPolicy", "Policy",
+    "QueryEvent", "RegretPolicy", "ReorgExecutor", "ReorgScheduler",
     "SchedulerSpec", "StateMatrix", "StaticPolicy", "StepResult",
     "StorageBackend", "ThresholdSwitchPolicy", "TokenBucketScheduler",
     "UnlimitedScheduler", "as_event", "as_scheduler_spec", "compute",
-    "fleet_scan_matrix", "scan_matrix",
+    "fleet_scan_matrix", "plan_migration", "scan_matrix",
 ]

@@ -8,13 +8,18 @@ the paper's design where candidate exploration never touches row data.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Protocol, Sequence, runtime_checkable
+import os
+import shutil
+import threading
+from typing import (Dict, List, Optional, Protocol, Sequence, Tuple,
+                    runtime_checkable)
 
 import numpy as np
 import torch
 
 from repro_torch.core import layouts as L
 from repro_torch.core import workload as wl
+from repro_torch.data.partition_store import PartitionStore, write_manifest
 
 from . import compute
 from .state_matrix import StateMatrix
@@ -149,6 +154,24 @@ class _RegistryMixin:
         """The packed metadata plane."""
         return self._matrix
 
+    def estimate_costs(self, state_ids: Sequence[int],
+                       query: wl.Query) -> Dict[int, float]:
+        """Batched metadata-only c(s, q) for every requested state: one scan
+        over the persistent StateMatrix plane (or primed costs)."""
+        costs = self._primed_costs(query)
+        if costs is not None:
+            return self._primed_dict(costs, state_ids)
+        return self._matrix.estimate_costs(state_ids, query.lo, query.hi)
+
+    def estimate_vector(self, query: wl.Query) -> np.ndarray:
+        """All registered states' c(s, q) as one float64 per-slot vector
+        (slot order is :attr:`StateMatrix.state_ids`); primed costs are
+        consumed when valid."""
+        costs = self._primed_costs(query)
+        if costs is not None:
+            return costs
+        return self._matrix.estimate(query.lo, query.hi)
+
 
 class InMemoryBackend(_RegistryMixin):
     """Backend over a table held as one (N, C) float64 tensor on a device.
@@ -181,6 +204,7 @@ class InMemoryBackend(_RegistryMixin):
         self._serving_cache: Optional[tuple] = None
         self._serve_memo: Optional[tuple] = None
         self._shadow_slot: Optional[tuple] = None   # (plane version, slot)
+        self._migration = None                      # in-flight MigrationPlan
 
     def prepare(self, state_id: int) -> None:
         # In-memory reorganization is instantaneous; nothing to overlap.
@@ -192,27 +216,75 @@ class InMemoryBackend(_RegistryMixin):
         return []
 
     def _install_serving_meta(self, meta: L.PartitionMetadata) -> None:
-        """Swap the physical serving zone maps."""
+        """Swap the physical serving zone maps (layout or hybrid state)."""
         self._serving_cache = (meta.mins.contiguous(), meta.maxs.contiguous(),
                                L.self_rows(meta), max(meta.total_rows, 1))
         self._serve_memo = None
         # Re-registering the shadow fires the StateMatrix listener events,
-        # so a mirror keeps scoring the serving state.
+        # so a mirror keeps scoring this tenant's (possibly hybrid) serving
+        # state in the fused pass.
         self._matrix.register(self.SERVING_SHADOW, meta)
 
-    def activate(self, state_id: int) -> None:
-        layout = self._layouts[state_id]
+    def _install_base_meta(self, meta: L.PartitionMetadata) -> None:
+        """Install a base (delta-free) serving state.
+
+        Every serving change goes through here.  Streaming ingest composes
+        its pending delta partitions on top of ``meta`` at this point; with
+        no ingest the served state *is* ``meta``.
+        """
+        self._install_serving_meta(meta)
+
+    def _activate_layout(self, layout: L.Layout) -> None:
         self._serving = layout
-        self._install_serving_meta(layout.materialize(self.data))
+        self._install_base_meta(layout.materialize(self.data))
+
+    def activate(self, state_id: int) -> None:
+        self._activate_layout(self._layouts[state_id])
 
     @property
     def serving_state(self) -> Optional[int]:
         return None if self._serving is None else self._serving.layout_id
 
+    # -- incremental migration (see repro_torch.engine.reorg) -----------
     @property
     def serving_layout(self) -> Optional[L.Layout]:
-        """The Layout object behind :attr:`serving_state`."""
+        """The Layout object behind :attr:`serving_state` (source of an
+        in-flight migration)."""
         return self._serving
+
+    @property
+    def supports_incremental(self) -> bool:
+        """Hybrid serving runs on the packed plane, which every backend of
+        the port has."""
+        return True
+
+    @property
+    def migrating(self) -> bool:
+        return self._migration is not None
+
+    def begin_migration(self, plan) -> None:
+        """An incremental migration starts; serving is untouched until the
+        first completed micro-batch lands via :meth:`apply_migration`."""
+        if self._migration is not None:
+            raise RuntimeError("a migration is already in flight")
+        self._migration = plan
+
+    def apply_migration(self, hybrid_meta: L.PartitionMetadata,
+                        newly_done: Sequence[int]) -> None:
+        """A micro-batch of moves completed: serve the hybrid state.
+
+        The hybrid zone maps become the physical serving state (and the
+        SERVING_SHADOW plane entry), so estimates, serve fusion and block
+        serving all score the mixed moved/unmoved partitioning exactly.
+        """
+        self._install_base_meta(hybrid_meta)
+
+    def complete_migration(self, plan) -> None:
+        """The last move landed: snap to the target layout through the
+        same path :meth:`activate` takes (bitwise the atomic end state,
+        even if the target state was evicted mid-flight)."""
+        self._migration = None
+        self._activate_layout(plan.target)
 
     def estimate_costs(self, state_ids: Sequence[int],
                        query: wl.Query) -> Dict[int, float]:
@@ -280,3 +352,298 @@ class InMemoryBackend(_RegistryMixin):
         mins, maxs, rows, total = self._serving_cache
         acc = compute.scan_matrix(q_lo, q_hi, mins, maxs)
         return L.scanned_dot(acc, rows) / total
+
+
+class DiskBackend(_RegistryMixin):
+    """On-disk backend over
+    :class:`repro_torch.data.partition_store.PartitionStore`.
+
+    Every materialized layout lives in its own versioned directory under
+    ``root``; :meth:`prepare` rewrites the table into a *fresh* directory on
+    a background thread while queries keep scanning the old one, and
+    :meth:`activate` flips the serving pointer (joining the writer first if
+    the Δ-delay elapsed before the rewrite finished).  This gives the
+    paper's §VI-D5 semantics for real files: reorganization cost is incurred
+    at decision time, the swap is deferred, and serving is never interrupted.
+
+    ``data`` is the table as a float64 tensor on its device: the writer
+    routes and gathers it there (on the writer thread, for a background
+    rewrite) and copies each partition to the host once.  A rewrite that
+    raises is re-raised by :meth:`activate`, so a failed write is never
+    served.  The crash-safe manifest log (``durable=True``) and streaming
+    ingest belong to a later slice of the port and raise
+    :class:`NotImplementedError`.
+    """
+
+    def __init__(self, data: torch.Tensor, root: str, compress: bool = True,
+                 background: bool = True, durable: bool = False):
+        if durable:
+            raise NotImplementedError(
+                "DiskBackend(durable=True) is not ported yet (slice 4, "
+                "ROADMAP.md queue 1 item 7)")
+        if not isinstance(data, torch.Tensor) or data.dtype != torch.float64:
+            raise TypeError("DiskBackend needs the table as a float64 "
+                            "tensor on its device (see repro_torch.data)")
+        self.data = data
+        self.root = root
+        self.compress = compress
+        self.background = background
+        os.makedirs(root, exist_ok=True)
+        self._init_registry(data.device)
+        self._serving_layout: Optional[L.Layout] = None
+        self._serving_store: Optional[PartitionStore] = None
+        self._version = 0
+        self._lock = threading.Lock()
+        self._pending: Dict[int, Tuple[Optional[threading.Thread],
+                                       PartitionStore, dict]] = {}
+        self.initial_write_seconds = 0.0
+        self.reorg_seconds: List[float] = []
+        # In-flight incremental migration (see repro_torch.engine.reorg):
+        # (plan, partial target store, done mask, hybrid metadata).
+        self._migration: Optional[tuple] = None
+
+    # ------------------------------------------------------------------
+    def _new_store(self) -> PartitionStore:
+        self._version += 1
+        return PartitionStore(os.path.join(self.root,
+                                           f"v{self._version:05d}"),
+                              device=self.data.device)
+
+    def _save(self):
+        return np.savez_compressed if self.compress else np.savez
+
+    def deregister(self, state_id: int) -> None:
+        super().deregister(state_id)
+        pending = self._pending.pop(state_id, None)
+        if pending is None:
+            return
+        thread, store, entry = pending
+        # Never block serving on an in-flight rewrite whose output is being
+        # discarded: flag it cancelled and let the writer thread delete its
+        # own directory; only clean up here if the write already finished.
+        with self._lock:
+            entry["cancelled"] = True
+            finished = entry["done"] or thread is None
+        if finished:
+            shutil.rmtree(store.root, ignore_errors=True)
+
+    def prepare(self, state_id: int) -> None:
+        if state_id in self._pending or state_id not in self._layouts:
+            return
+        layout = self._layouts[state_id]
+        store = self._new_store()
+        entry = {"done": False, "cancelled": False, "error": None}
+        device = self.data.device
+
+        def work() -> None:
+            try:
+                if device.type == "cuda":
+                    # The writer thread launches on the table's card.
+                    with torch.cuda.device(device):
+                        secs = store.write(self.data, layout,
+                                           compress=self.compress)
+                else:
+                    secs = store.write(self.data, layout,
+                                       compress=self.compress)
+            except Exception as exc:
+                with self._lock:
+                    entry["error"] = exc
+                    entry["done"] = True
+                if not self.background:
+                    raise
+                return              # activate() re-raises it
+            with self._lock:
+                entry["done"] = True
+                cancelled = entry["cancelled"]
+            if cancelled:
+                shutil.rmtree(store.root, ignore_errors=True)
+            else:
+                self.reorg_seconds.append(secs)
+
+        if self.background:
+            thread = threading.Thread(target=work, daemon=True)
+            thread.start()
+        else:
+            work()
+            thread = None
+        self._pending[state_id] = (thread, store, entry)
+
+    def activate(self, state_id: int) -> None:
+        layout = self._layouts[state_id]
+        pending = self._pending.pop(state_id, None)
+        if pending is None:
+            store = self._new_store()
+            secs = store.write(self.data, layout, compress=self.compress)
+            if self._serving_store is None:
+                # First materialization: the initial table load, not a reorg.
+                self.initial_write_seconds += secs
+            else:
+                self.reorg_seconds.append(secs)
+        else:
+            thread, store, entry = pending
+            if thread is not None:
+                thread.join()
+            if entry["error"] is not None:
+                shutil.rmtree(store.root, ignore_errors=True)
+                raise RuntimeError(
+                    f"DiskBackend: the background rewrite of state "
+                    f"{state_id} failed") from entry["error"]
+        old = self._serving_store
+        self._serving_store, self._serving_layout = store, layout
+        if old is not None:
+            shutil.rmtree(old.root, ignore_errors=True)
+
+    @property
+    def serving_state(self) -> Optional[int]:
+        return (None if self._serving_layout is None
+                else self._serving_layout.layout_id)
+
+    @property
+    def pending_states(self) -> List[int]:
+        """State ids with an in-flight (prepared) background rewrite."""
+        return sorted(self._pending)
+
+    def materializing(self, state_id: int) -> bool:
+        """True while ``state_id``'s background rewrite has not finished.
+
+        Used by fleet schedulers to observe in-flight physical work; a
+        state that was never prepared, or whose write completed, is False.
+        """
+        pending = self._pending.get(state_id)
+        if pending is None:
+            return False
+        _, _, entry = pending
+        with self._lock:
+            return not entry["done"]
+
+    def enable_ingest(self):
+        """Streaming ingest belongs to a later slice of the port."""
+        raise NotImplementedError(
+            "DiskBackend ingest is not ported yet (slice 4, ROADMAP.md "
+            "queue 1 item 7)")
+
+    # -- incremental migration (see repro_torch.engine.reorg) -----------
+    @property
+    def serving_layout(self) -> Optional[L.Layout]:
+        """The Layout object behind :attr:`serving_state`."""
+        return self._serving_layout
+
+    @property
+    def supports_incremental(self) -> bool:
+        return True
+
+    @property
+    def migrating(self) -> bool:
+        return self._migration is not None
+
+    def begin_migration(self, plan) -> None:
+        """Open a partial target store; partition files land move by move."""
+        if self._migration is not None:
+            raise RuntimeError("a migration is already in flight")
+        store = self._new_store()
+        done = np.zeros(plan.num_target_partitions, dtype=bool)
+        self._migration = (plan, store, done, None)
+
+    def _write_target_partition(self, plan, store: PartitionStore,
+                                j: int) -> None:
+        self._save()(os.path.join(store.root, f"part_{j:05d}.npz"),
+                     rows=plan.target_partition_rows(self.data, j)
+                     .cpu().numpy())
+
+    def apply_migration(self, hybrid_meta: L.PartitionMetadata,
+                        newly_done: Sequence[int]) -> None:
+        """A micro-batch of moves completed: write the moved target
+        partitions' files and serve the hybrid state from here on.
+
+        Moved rows physically live in the partial target store; the old
+        store's files are left untouched and their moved rows are filtered
+        out logically at scan time (rewriting every touched source file
+        per micro-batch would re-pay the move many times over — the same
+        reasoning the skip-aware ``PartitionStore.reorganize`` applies).
+        """
+        plan, store, done, _ = self._migration
+        for j in newly_done:
+            self._write_target_partition(plan, store, j)
+        done[list(newly_done)] = True
+        self._migration = (plan, store, done, hybrid_meta)
+
+    def complete_migration(self, plan) -> None:
+        """The last move landed: finish the target store and flip to it.
+
+        Identical partitions (never moved) are copied file-for-file from
+        the old store; remaining empty partitions get empty files; the
+        manifest is the target's exact metadata.  No full rewrite happens.
+        """
+        _, store, done, _ = self._migration
+        self._migration = None
+        meta = plan.target_meta
+        for j in range(plan.num_target_partitions):
+            if done[j]:
+                continue
+            src = plan.identical.get(j)
+            if src is not None and self._serving_store is not None:
+                shutil.copyfile(
+                    os.path.join(self._serving_store.root,
+                                 f"part_{src:05d}.npz"),
+                    os.path.join(store.root, f"part_{j:05d}.npz"))
+            else:
+                # Only empty target partitions reach here (every non-empty
+                # non-identical partition was a planned move).
+                self._write_target_partition(plan, store, j)
+        write_manifest(store.root, plan.num_target_partitions,
+                       meta.mins.cpu().tolist(), meta.maxs.cpu().tolist(),
+                       meta.rows_host, plan.target.name)
+        old = self._serving_store
+        self._serving_store, self._serving_layout = store, plan.target
+        if old is not None:
+            shutil.rmtree(old.root, ignore_errors=True)
+
+    def _serve_hybrid(self, query: wl.Query) -> float:
+        """Scan the hybrid state: residual source partitions (moved rows
+        filtered out) + moved target partitions, skipped by the hybrid
+        zone maps.  ``rows_read`` counts logical hybrid rows, matching the
+        metadata cost model the in-memory backend charges."""
+        plan, store, done, hybrid_meta = self._migration
+        scanned = L.partitions_scanned(hybrid_meta, query.lo, query.hi)
+        p_s = plan.num_source_partitions
+        rows_read = 0
+        for p in np.nonzero(scanned)[0]:
+            if p < p_s:
+                path = os.path.join(self._serving_store.root,
+                                    f"part_{p:05d}.npz")
+                # The physical read (scan realism for wall-clock numbers);
+                # the *logical* row count comes from the mask alone — no
+                # filtered copy is materialized just to be measured.
+                with np.load(path) as z:
+                    rows_in_file = len(z["rows"])
+                moved = plan.source_moved_mask(int(p), done)
+                rows_read += rows_in_file - int(moved.sum())
+            else:
+                j = int(p) - p_s
+                with np.load(os.path.join(store.root,
+                                          f"part_{j:05d}.npz")) as z:
+                    rows_read += len(z["rows"])
+        return rows_read / max(len(self.data), 1)
+
+    def serve(self, query: wl.Query) -> float:
+        if self._migration is not None and self._migration[3] is not None:
+            return self._serve_hybrid(query)
+        _, stats = self._serving_store.scan(query)
+        return stats.rows_read / max(len(self.data), 1)
+
+    def close(self) -> None:
+        """Join background writers and remove all materialized directories."""
+        for state_id in list(self._pending):
+            thread, store, entry = self._pending.pop(state_id)
+            with self._lock:
+                entry["cancelled"] = True
+            if thread is not None:
+                thread.join()
+            shutil.rmtree(store.root, ignore_errors=True)
+        if self._migration is not None:
+            _, store, _, _ = self._migration
+            shutil.rmtree(store.root, ignore_errors=True)
+            self._migration = None
+        if self._serving_store is not None:
+            shutil.rmtree(self._serving_store.root, ignore_errors=True)
+            self._serving_store = self._serving_layout = None

@@ -12,7 +12,12 @@ where the zone maps live and hands it back to the host:
   (:mod:`repro_torch.kernels.fleet_scan`);
 * :func:`fused_frames_scan`: a whole block of frames against the fleet
   plane in one launch of the fused decision kernel
-  (:mod:`repro_torch.kernels.decision_fused`).
+  (:mod:`repro_torch.kernels.decision_fused`);
+* :func:`move_frequencies` / :func:`fused_window_freq`: the share of a
+  window of recent queries scanning each partition, which orders a
+  migration's micro-moves: the move-score kernel
+  (:mod:`repro_torch.kernels.move_score`) or the fused decision kernel's
+  ``freq`` output with no frames.
 
 On a CUDA device each is the hand-written kernel, which compares in float64
 and is therefore exact on every input; on the CPU it is the kernel's plain
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch.kernels.decision_fused import decision_fused
 from repro_torch.kernels.fleet_scan import fleet_scan
+from repro_torch.kernels.move_score import move_score
 from repro_torch.kernels.pruning import pruning
 
 #: Device types the scans run on: the kernels on ``cuda``, their plain
@@ -112,3 +118,32 @@ def fused_frames_scan(q_lo: np.ndarray, q_hi: np.ndarray, p_min: torch.Tensor,
     scan, _, _ = decision_fused.fused_decision(bounds[0], bounds[1], p_min,
                                                p_max)
     return scan.cpu().numpy()
+
+
+def move_frequencies(q_lo: np.ndarray, q_hi: np.ndarray, p_min: torch.Tensor,
+                     p_max: torch.Tensor) -> np.ndarray:
+    """(Q, C) host window x (S, P, C) plane -> (S, P) host float64.
+
+    ``out[s, p]`` is ``count / Q``, the share of the window's queries that
+    scan partition p of state s: one launch of the move-score kernel.
+    """
+    bounds = _bounds(q_lo, q_hi, p_min.device)
+    return move_score.move_scores(bounds[0], bounds[1], p_min,
+                                  p_max).cpu().numpy()
+
+
+def fused_window_freq(q_lo: np.ndarray, q_hi: np.ndarray, p_min: torch.Tensor,
+                      p_max: torch.Tensor) -> np.ndarray:
+    """(W, C) host window x (T, S, P, C) plane -> (T, S, P) host float64.
+
+    The fused decision kernel's ``freq`` output alone: one launch with no
+    frames (B = 0) and no scan, the same ``count / W`` as
+    :func:`move_frequencies`.
+    """
+    bounds = _bounds(q_lo, q_hi, p_min.device)
+    t, c = p_min.shape[0], p_min.shape[3]
+    frames = torch.empty((0, t, c), dtype=torch.float64, device=p_min.device)
+    _, _, freq = decision_fused.fused_decision(
+        frames, frames, p_min, p_max, w_lo=bounds[0], w_hi=bounds[1],
+        emit_scan=False)
+    return freq.cpu().numpy()

@@ -48,34 +48,52 @@ class LayoutEngine:
     query.  Single-use and stateful: feed it one logical stream (via
     :meth:`step` or :meth:`run`) and read the trace with :meth:`result`.
 
-    The incremental reorganization plane and streaming ingest belong to
-    later slices of the port; asking for them raises
-    :class:`NotImplementedError`.
+    Streaming ingest belongs to a later slice of the port; asking for it
+    raises :class:`NotImplementedError`.
     """
 
     def __init__(self, policy: Policy, backend: StorageBackend,
                  delta: int = 0, name: Optional[str] = None,
                  governor: Optional[object] = None,
                  incremental: bool = False,
+                 rows_per_tick: Optional[int] = None,
+                 reorg_window: int = 64,
+                 reorg_compute: str = "move_score",
                  ingest: Optional[object] = None):
-        for given, what, where in (
-                (incremental, "incremental=True", "slice 3, ROADMAP.md queue "
-                 "1 item 6"),
-                (ingest is not None, "ingest", "slice 4, ROADMAP.md queue 1 "
-                 "item 7")):
-            if given:
-                raise NotImplementedError(
-                    f"LayoutEngine({what}) is not ported yet ({where})")
+        if ingest is not None:
+            raise NotImplementedError(
+                "LayoutEngine(ingest) is not ported yet (slice 4, "
+                "ROADMAP.md queue 1 item 7)")
         self.policy = policy
         self.backend = backend
         self.delta = delta
         self.name = name or policy.name
         self.alpha = policy.alpha
-        #: Atomic engines only: the fleet reads these to tell the modes
-        #: apart (an incremental executor and an ingest debt meter come
-        #: with later slices).
-        self.incremental = False
+        #: Incremental reorganization mode (see
+        #: :mod:`repro_torch.engine.reorg`): instead of one wholesale swap
+        #: at the Δ-due step, a charged reorganization becomes a planned
+        #: migration executed a micro-batch at a time under a per-tick row
+        #: budget (``rows_per_tick``, None = unbounded; a fleet scheduler
+        #: with ``grant_rows`` can tighten it further).  Charges are
+        #: untouched — α still lands at decision time — and with an
+        #: unbounded budget the trace is bit-identical to the atomic loop.
+        #: ``reorg_compute`` names the planner's scan-frequency lane
+        #: (``"move_score"`` or ``"decision_fused"``).
+        self.incremental = bool(incremental)
         self.reorg_executor = None
+        if self.incremental:
+            if not getattr(backend, "supports_incremental", False):
+                raise ValueError(
+                    "incremental=True needs a backend with hybrid-serving "
+                    f"support ({type(backend).__name__} has none)")
+            from .reorg import ReorgExecutor
+            self.reorg_executor = ReorgExecutor(
+                backend, rows_per_tick=rows_per_tick,
+                recent_window=reorg_window, compute=reorg_compute)
+        elif rows_per_tick is not None:
+            raise ValueError("rows_per_tick requires incremental=True")
+        #: The ingest debt meter comes with a later slice; the fleet reads
+        #: it to decide whether a pass may commit in bulk.
         self._debt = None
         #: Optional reorg governor (see :mod:`repro_torch.engine.fleet`): an
         #: object with ``on_charge(engine, index, state_id) -> bool`` (may
@@ -116,15 +134,50 @@ class LayoutEngine:
         """
         if decision.reorg:
             self._reorg_indices.append(i)
-            if (self.governor is None
-                    or self.governor.on_charge(self, i, decision.state)):
+            granted = (self.governor is None
+                       or self.governor.on_charge(self, i, decision.state))
+            if granted and not self.incremental:
+                # Incremental mode never pre-materializes: physical work
+                # happens at apply time, a micro-batch per tick.
                 self.backend.prepare(decision.state)
             self._pending_swaps.append((i + self.delta, decision.state))
 
     def _apply_due_swaps(self, i: int) -> None:
         """Apply every swap that is due, in charge order; a state evicted
         while its swap was in flight is skipped.  A due swap the governor
-        keeps deferred blocks everything queued behind it."""
+        keeps deferred blocks everything queued behind it.
+
+        In incremental mode "applying" a live swap *begins* a migration,
+        and this step's row budget is spent on it right away — so with an
+        unbounded budget several due swaps can begin, complete and
+        activate within one step, exactly like the atomic loop applies
+        them back to back.  Under a finite budget an in-flight migration
+        blocks later swaps until it completes (those waits are migration-
+        queue time, not scheduler deferral, and are not counted in the
+        deferral stats).  Evicted states are skipped through the same
+        bookkeeping as the atomic path.
+        """
+        executor = self.reorg_executor
+        if executor is not None:
+            # Governors with only the on_charge/may_apply pair still work:
+            # may_apply's release-on-grant semantics are the degenerate
+            # hold.
+            may_begin = (None if self.governor is None else getattr(
+                self.governor, "may_begin", self.governor.may_apply))
+            while True:
+                if executor.active is not None:
+                    executor.advance(self, i)
+                    if executor.active is not None:
+                        return              # tick budget exhausted
+                if not (self._pending_swaps
+                        and self._pending_swaps[0][0] <= i):
+                    return
+                due, sid = self._pending_swaps[0]
+                if may_begin is not None and not may_begin(self, due, sid):
+                    return
+                self._pending_swaps.popleft()
+                if self.backend.has(sid):
+                    executor.begin(self, sid, i, charged_at=due - self.delta)
         while self._pending_swaps and self._pending_swaps[0][0] <= i:
             due, sid = self._pending_swaps[0]
             if (self.governor is not None
@@ -140,20 +193,46 @@ class LayoutEngine:
         return tuple(self._pending_swaps)
 
     def finish_migration(self) -> None:
-        """Drive an in-flight incremental migration to completion: a no-op
-        for the atomic engine, which never has one."""
+        """Drive any in-flight incremental migration to completion now.
+
+        The finish half of the fleet's finish-or-transplant detach
+        (:meth:`repro_torch.engine.FleetEngine.remove_tenant`): the
+        remaining micro-moves land at the *current* index under an
+        unmetered budget, so the migration's charge ledger closes bitwise
+        on α right here instead of travelling with the engine.  No-op when
+        idle or atomic.
+        """
+        executor = self.reorg_executor
+        if executor is None or executor.active is None:
+            return
+        saved_governor = self.governor
+        saved_cap = executor.rows_per_tick
+        self.governor = None            # no grant_rows metering
+        executor.rows_per_tick = None
+        try:
+            executor.advance(self, self._index)
+        finally:
+            self.governor = saved_governor
+            executor.rows_per_tick = saved_cap
+        assert executor.active is None, \
+            "unbounded advance must complete the migration"
 
     def _step_core(self, query: wl.Query):
         """The decide/charge/swap/serve sequence shared by :meth:`step`
-        and :meth:`step_fast`."""
+        and :meth:`step_fast` — one implementation so the two entry points
+        can never drift apart (the fleet's loop/batched bit-identity rests
+        on that)."""
         self.start()
         i = self._index
+        executor = self.reorg_executor
+        if executor is not None:
+            executor.observe(query)
         t0 = time.perf_counter()
         decision = self.policy.decide(i, query, self.backend)
         t1 = time.perf_counter()
         self._charge_reorg(i, decision)
-        self._apply_due_swaps(i)
-        t2 = time.perf_counter()
+        self._apply_due_swaps(i)        # incremental: also spends the
+        t2 = time.perf_counter()        # step's migration row budget
         query_cost = float(self.backend.serve(query))
         t3 = time.perf_counter()
         self._query_costs.append(query_cost)
@@ -216,7 +295,16 @@ class LayoutEngine:
         """
         queries = list(stream)
         has_block = callable(getattr(self.backend, "serve_block", None))
-        if batch_serve is None:
+        if self.incremental:
+            # Hybrid serving can change the layout at *any* step a
+            # micro-batch lands, not only at pending-swap applies, so the
+            # swap-aligned block flushing below would serve stale blocks.
+            if batch_serve:
+                raise ValueError(
+                    "batch_serve=True is incompatible with incremental=True"
+                    " (hybrid updates land between swaps)")
+            batch_serve = False
+        elif batch_serve is None:
             batch_serve = has_block
         elif batch_serve and not has_block:
             raise ValueError(

@@ -29,8 +29,8 @@ The contract with each tenant's Δ-delay semantics (paper §VI-D5):
 
 The host logic is the reference package's, line for line; the batched
 path scores every pass on the packed :class:`FleetMatrix` plane on the
-device.  Incremental fleets and streaming ingest are later slices of the
-port and raise :class:`NotImplementedError`.
+device.  Streaming ingest is a later slice of the port and raises
+:class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -48,8 +48,6 @@ from .core import LayoutEngine, StepResult
 from .fleet_matrix import FleetMatrix
 from .scheduler import ReorgScheduler, SchedulerSpec, UnlimitedScheduler
 
-_INCREMENTAL = ("incremental fleets are not ported yet (slice 3, ROADMAP.md "
-                "queue 1 item 6)")
 _INGEST = ("ingest events are not ported yet (slice 4, ROADMAP.md queue 1 "
            "item 7)")
 
@@ -140,6 +138,20 @@ class _TenantGovernor:
                   state_id: int) -> bool:
         return self.fleet._may_apply(self.tenant_id, engine, state_id)
 
+    def may_begin(self, engine: LayoutEngine, due_index: int,
+                  state_id: int) -> bool:
+        # Incremental variant of may_apply: the granted unit stays held
+        # for the whole migration (released via on_complete), so the
+        # scheduler sees in-flight migrations as in-flight work.
+        return self.fleet._may_apply(self.tenant_id, engine, state_id,
+                                     hold=True)
+
+    def on_complete(self, engine: LayoutEngine, state_id: int) -> None:
+        self.fleet._on_complete(self.tenant_id)
+
+    def grant_rows(self, engine: LayoutEngine, want: int) -> int:
+        return self.fleet._grant_rows(self.tenant_id, want)
+
 
 class FleetEngine:
     """Drives N tenant engines over one interleaved query stream.
@@ -163,15 +175,30 @@ class FleetEngine:
             raise ValueError("a fleet needs at least one tenant (or an "
                              "explicit incremental= mode for an empty "
                              "shard)")
-        if incremental:
-            raise NotImplementedError(_INCREMENTAL)
         self.name = name
         if isinstance(scheduler, SchedulerSpec):
             scheduler = scheduler.build()
         self.scheduler = scheduler or UnlimitedScheduler()
         self._tenants: Dict[str, LayoutEngine] = dict(tenants)
-        #: Atomic fleets only in this port (every tenant engine is atomic).
-        self.incremental = False
+        #: Incremental fleet mode (see :mod:`repro_torch.engine.reorg`):
+        #: every tenant engine must have been built with
+        #: ``incremental=True``; scheduler grants are then held for whole
+        #: migrations and ``grant_rows`` meters per-tick row budgets.
+        #: ``None`` infers the mode from the tenants (which must agree).
+        modes = {tid: e.incremental for tid, e in self._tenants.items()}
+        if incremental is None:
+            if len(set(modes.values())) > 1:
+                raise ValueError(
+                    f"tenants mix incremental and atomic engines: {modes}")
+            incremental = next(iter(modes.values()))
+        else:
+            wrong = [tid for tid, m in modes.items()
+                     if m != bool(incremental)]
+            if wrong:
+                raise ValueError(
+                    f"incremental={incremental!r} but tenants {wrong} were "
+                    f"built with the opposite mode")
+        self.incremental = bool(incremental)
         for tid, engine in self._tenants.items():
             if engine.governor is not None:
                 raise ValueError(f"tenant {tid!r}: engine already governed")
@@ -194,6 +221,15 @@ class FleetEngine:
         # Work granted (prepare issued) but swap not yet applied.
         self._granted: Dict[str, Deque[int]] = {
             tid: collections.deque() for tid in self._tenants}
+        # Units held by in-flight incremental migrations (granted via
+        # may_begin, released on migration completion).
+        self._held: Dict[str, int] = {tid: 0 for tid in self._tenants}
+        # Units held by *transplanted* in-flight migrations this fleet's
+        # scheduler refused to grant at re-attach time (see add_tenant):
+        # the migration keeps moving — physical work cannot be un-begun —
+        # but completion must not release a unit that was never acquired
+        # here, so these are consumed before self._held on completion.
+        self._held_free: Dict[str, int] = {}
         # Packed decision plane for run_batched; built lazily on first use
         # and maintained incrementally from then on (tenant attach/detach
         # plus per-tenant state events), never rebuilt per tick.
@@ -224,7 +260,12 @@ class FleetEngine:
         fleet via :meth:`remove_tenant` — is **re-attached**: every
         charged-but-unapplied swap re-enters this fleet's admission queue
         in charge order (charges are never re-issued; α already landed at
-        decision time).  Under
+        decision time, so the tenant's charge ledger is untouched by the
+        move), and an in-flight incremental migration keeps its
+        partially-summed
+        :class:`~repro_torch.engine.reorg.executor.MigrationRecord` ledger
+        and holds one scheduler unit here (or a free hold if this scheduler
+        refuses — moves in flight cannot be un-begun).  Under
         :class:`~repro_torch.engine.scheduler.UnlimitedScheduler` on both
         sides, a detach/re-attach round trip is trace-bitwise invisible.
         A governed engine is always rejected — detach it first.
@@ -236,18 +277,29 @@ class FleetEngine:
             raise ValueError(f"tenant {tenant_id!r} already registered")
         if engine.governor is not None:
             raise ValueError(f"tenant {tenant_id!r}: engine already governed")
-        if engine.incremental:
-            raise NotImplementedError(_INCREMENTAL)
+        if engine.incremental != self.incremental:
+            raise ValueError(
+                f"tenant {tenant_id!r}: engine incremental="
+                f"{engine.incremental} but the fleet runs "
+                f"incremental={self.incremental}")
         engine.governor = _TenantGovernor(self, tenant_id)
         self._tenants[tenant_id] = engine
         self._front_deferred[tenant_id] = False
         self._waiting_count[tenant_id] = 0
         self._granted[tenant_id] = collections.deque()
+        self._held[tenant_id] = 0
         if engine._started:
             # Transplant: queued physical work re-enters admission here.
             for _, sid in engine._pending_swaps:
                 self._waiting.append((tenant_id, sid))
                 self._waiting_count[tenant_id] += 1
+            executor = engine.reorg_executor
+            if executor is not None and executor.active is not None:
+                if self.scheduler.try_acquire(tenant_id):
+                    self._held[tenant_id] = 1
+                else:
+                    self._held_free[tenant_id] = \
+                        self._held_free.get(tenant_id, 0) + 1
         if self._fleet_matrix is not None:
             self._fleet_matrix.attach(tenant_id,
                                       self._batchable_matrix(tenant_id))
@@ -269,13 +321,20 @@ class FleetEngine:
                       finish: bool = False) -> LayoutEngine:
         """Detach a tenant and return its (still usable) engine.
 
-        Charged-but-unapplied swaps stay on the engine's own pending queue
-        (charges are decision-time and never dropped); their scheduler
-        grants are released here and re-acquired wherever the engine lands
-        next — a fleet via :meth:`add_tenant`, or standalone Δ-delay
-        semantics if never re-attached.  ``finish`` drives an in-flight
-        incremental migration to completion first; an atomic engine has
-        none.
+        Deterministic **finish-or-transplant** semantics for physical
+        work in flight:
+
+        * Charged-but-unapplied swaps stay on the engine's own pending
+          queue (charges are decision-time and never dropped); their
+          scheduler grants are released here and re-acquired wherever the
+          engine lands next — a fleet via :meth:`add_tenant`, or
+          standalone Δ-delay semantics if never re-attached.
+        * An in-flight incremental migration either keeps migrating on
+          the engine (transplant: its held unit is released to this pool
+          and the partially-summed charge ledger travels with the
+          engine's executor), or — with ``finish=True`` — is driven to
+          completion *now*, closing the ledger bitwise on α at the
+          current index, before the engine is handed back.
 
         Queued inbox events for the tenant must be taken first
         (:meth:`take_inbox`); leaving them behind would crash the next
@@ -294,6 +353,12 @@ class FleetEngine:
                 (t, s) for t, s in self._waiting if t != tenant_id)
         for _ in self._granted.pop(tenant_id):
             self.scheduler.release(tenant_id)
+        for _ in range(self._held.pop(tenant_id, 0)):
+            # An in-flight migration's unit goes back to the pool; the
+            # detached engine keeps migrating under its own local budget.
+            self.scheduler.release(tenant_id)
+        # Free holds were never acquired from this scheduler: drop them.
+        self._held_free.pop(tenant_id, None)
         self._front_deferred.pop(tenant_id)
         if self._fleet_matrix is not None:
             self._fleet_matrix.detach(tenant_id)
@@ -315,12 +380,21 @@ class FleetEngine:
         return False
 
     def _may_apply(self, tid: str, engine: LayoutEngine,
-                   state_id: int) -> bool:
-        """May this tenant's front (due) swap take effect at this step?"""
+                   state_id: int, hold: bool = False) -> bool:
+        """May this tenant's front (due) swap take effect at this step?
+
+        ``hold=True`` (incremental mode) keeps the granted unit instead of
+        releasing it: the migration about to begin holds it until
+        :meth:`_on_complete`.  An evicted target releases immediately —
+        no migration will begin for it.
+        """
         granted = self._granted[tid]
         if granted and granted[0] == state_id:
             granted.popleft()
-            self.scheduler.release(tid)
+            if hold and engine.backend.has(state_id):
+                self._held[tid] += 1
+            else:
+                self.scheduler.release(tid)
             self._front_deferred[tid] = False
             return True
         if not engine.backend.has(state_id):
@@ -338,6 +412,27 @@ class FleetEngine:
             self._front_deferred[tid] = True
             self.swaps_deferred += 1
         return False
+
+    def _on_complete(self, tid: str) -> None:
+        """A tenant's incremental migration finished: release its unit.
+
+        Free holds (transplanted migrations this scheduler refused to
+        grant at re-attach) are consumed first and release nothing — the
+        unit was never acquired from this pool.
+        """
+        if self._held_free.get(tid, 0) > 0:
+            self._held_free[tid] -= 1
+            return
+        if self._held.get(tid, 0) > 0:
+            self._held[tid] -= 1
+            self.scheduler.release(tid)
+
+    def _grant_rows(self, tid: str, want: int) -> int:
+        """Per-tick row budget for a tenant's in-flight migration."""
+        grant = getattr(self.scheduler, "grant_rows", None)
+        if grant is None:
+            return want
+        return grant(tid, want)
 
     def _pump(self) -> None:
         """Grant waiting physical work, FIFO, as the scheduler allows."""
@@ -357,7 +452,10 @@ class FleetEngine:
                 continue
             self._waiting_count[tid] -= 1
             self._granted[tid].append(sid)
-            engine.backend.prepare(sid)
+            if not engine.incremental:
+                # Incremental engines never pre-materialize: rows move at
+                # apply time, a micro-batch per tick (see _apply_due_swaps).
+                engine.backend.prepare(sid)
         self._waiting = keep
 
     # ------------------------------------------------------------------
@@ -537,7 +635,9 @@ class FleetEngine:
         for engine, _, _ in prep.values():
             engine.start()
         # Static bulk-path eligibility: every tenant must carry a pure
-        # batched decision rule and exact primable serve scores.
+        # batched decision rule and bookkeeping a no-swap frame can replay
+        # wholesale (no incremental executor ticking per step, no ingest
+        # debt observing per query, exact primable serve scores).
         bulk_ok = all(
             callable(getattr(engine.policy, "decide_frames", None))
             and engine.reorg_executor is None and engine._debt is None

@@ -313,3 +313,130 @@ def test_fleet_lanes_reach_the_kernels_and_equal_the_cpu(cuda_device):
                 card.scheduler_stats) == (cpu.swaps_deferred,
                                           cpu.deferred_ticks,
                                           cpu.scheduler_stats)
+
+
+# ---------------------------------------------------------------------------
+# move_score and the incremental reorganization plane
+# ---------------------------------------------------------------------------
+
+def window_operands(rng, q, s, p, c):
+    """A (Q, C) window and an (S, P, C) plane with empty partitions,
+    +-inf window bounds and window bounds equal to zone-map ends."""
+    mins = rng.uniform(0, 100, (s, p, c))
+    maxs = mins + rng.uniform(0, 30, (s, p, c))
+    empty = rng.random((s, p)) < 0.15
+    mins[empty], maxs[empty] = np.inf, -np.inf
+    lo = rng.uniform(-10, 110, (q, c))
+    hi = lo + rng.uniform(0, 60, (q, c))
+    if s * p and c:
+        pick = rng.integers(0, s * p, (q, c))
+        flat_min, flat_max = mins.reshape(-1, c), maxs.reshape(-1, c)
+        cols = np.broadcast_to(np.arange(c), (q, c))
+        at_min = rng.random((q, c)) < 0.2
+        at_max = rng.random((q, c)) < 0.2
+        hi[at_min] = flat_min[pick, cols][at_min]
+        lo[at_max] = flat_max[pick, cols][at_max]
+    lo[rng.random((q, c)) < 0.35] = -np.inf
+    hi[rng.random((q, c)) < 0.35] = np.inf
+    return lo, hi, mins, maxs
+
+
+@pytest.mark.parametrize("q,s,p,c,pad", [
+    (64, 2, 16, 8, 0), (64, 2, 32, 32, 0), (1, 2, 16, 8, 0),
+    (40, 3, 37, 5, 0), (64, 2, 130, 7, 0), (64, 4096, 16, 8, 0),
+    (64, 2, 32, 32, 3), (9, 2, 20, 0, 0),
+    (200, 2, 33, 100, 0)])          # window tiles past 48 KB of shared memory
+def test_move_score_kernel_matches_plain(cuda_device, q, s, p, c, pad):
+    from repro_torch.kernels.move_score import move_score, ref as mref
+    rng = np.random.default_rng(q + s + p + c)
+    lo, hi, mins, maxs = window_operands(rng, q, s, p, c)
+    wide_min = torch.zeros((s, p, c + pad), dtype=torch.float64,
+                           device=cuda_device)
+    wide_max = torch.zeros_like(wide_min)
+    wide_min[..., :c] = torch.as_tensor(mins, device=cuda_device)
+    wide_max[..., :c] = torch.as_tensor(maxs, device=cuda_device)
+    dev = [torch.as_tensor(a, device=cuda_device) for a in (lo, hi)]
+    before = move_score.move_scores.launches
+    got = move_score.move_scores(*dev, wide_min[..., :c], wide_max[..., :c])
+    torch.cuda.synchronize()
+    assert move_score.move_scores.launches == before + 1
+    want = mref.move_scores(*[torch.as_tensor(a)
+                              for a in (lo, hi, mins, maxs)])
+    assert torch.equal(got.cpu(), want)
+
+
+def test_move_score_refuses_cuda_operands_it_cannot_take(cuda_device):
+    from repro_torch.kernels.move_score import move_score
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    q = torch.zeros((4, 8), **kw)
+    plane = torch.zeros((2, 5, 8), **kw)
+    with pytest.raises(ValueError):                    # strided window
+        move_score.move_scores(q[:, ::2], q[:, ::2], plane[..., :4],
+                               plane[..., :4])
+    with pytest.raises(ValueError):                    # column stride 2
+        move_score.move_scores(q[:, :4], q[:, :4], plane[..., ::2],
+                               plane[..., ::2])
+    with pytest.raises(ValueError):                    # mixed devices
+        move_score.move_scores(q, q, plane, plane.cpu())
+    with pytest.raises(ValueError, match="empty"):
+        move_score.move_scores(q[:0], q[:0], plane, plane)
+    wide = torch.zeros((1, 1, 500), **kw)
+    with pytest.raises(ValueError, match="columns"):
+        move_score.move_scores(torch.zeros((1, 500), **kw),
+                               torch.zeros((1, 500), **kw), wide, wide)
+
+
+def test_incremental_fleet_on_the_card_equals_the_cpu(cuda_device):
+    """A small incremental fleet under a tight row budget: both fleet lanes
+    and both planner lanes on the card give the CPU run's traces and
+    migration ledgers, and the planner launched its kernel."""
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.move_score import move_score
+    rng = np.random.default_rng(4)
+    tables = {f"t{t}": rng.uniform(0, 100, size=(4_000, 6)) for t in
+              range(3)}
+    lo = np.min([d.min(0) for d in tables.values()], axis=0)
+    hi = np.max([d.max(0) for d in tables.values()], axis=0)
+    stream = core.make_drift_scenario("sudden_shift", lo, hi, num_tenants=3,
+                                      queries_per_tenant=90, seed=7)
+
+    def fleet(dev, planner):
+        engines = {}
+        for tid, table in tables.items():
+            data = torch.as_tensor(table, device=dev)
+            cfg = core.OreoConfig(alpha=10.0, seed=2, delta=5, manager=core.
+                                  LayoutManagerConfig(target_partitions=8,
+                                                      window_size=60,
+                                                      gen_every=30))
+            engines[tid] = engine.LayoutEngine(engine.OreoPolicy(
+                data, core.build_default_layout(0, data, 8),
+                core.make_generator("qdtree"), cfg),
+                engine.InMemoryBackend(data), delta=cfg.delta,
+                incremental=True, rows_per_tick=150, reorg_compute=planner)
+        return engine.FleetEngine(engines, engine.KConcurrentScheduler(1))
+
+    def ledgers(f):
+        return {tid: [(m.begun_at, m.completed_at, m.charges)
+                      for m in f.tenant(tid).reorg_executor.migrations]
+                for tid in stream.tenant_ids}
+    cpu_fleet = fleet(torch.device("cpu"), "move_score")
+    cpu = cpu_fleet.run(stream)
+    assert cpu.num_reorgs > 0
+    for planner, counter in (("move_score", move_score.move_scores),
+                             ("decision_fused",
+                              decision_fused.fused_decision)):
+        for lane in ("fleet_scan", "decision_fused"):
+            before = counter.launches
+            f = fleet(cuda_device, planner)
+            card = f.run_batched(stream, compute=lane)
+            assert counter.launches > before
+            for tid in stream.tenant_ids:
+                a, b = card.per_tenant[tid], cpu.per_tenant[tid]
+                assert np.array_equal(a.query_costs, b.query_costs)
+                assert a.reorg_indices == b.reorg_indices
+                assert np.array_equal(a.state_seq, b.state_seq)
+            assert ledgers(f) == ledgers(cpu_fleet)
+            assert (card.swaps_deferred, card.deferred_ticks,
+                    card.scheduler_stats) == (cpu.swaps_deferred,
+                                              cpu.deferred_ticks,
+                                              cpu.scheduler_stats)

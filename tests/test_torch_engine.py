@@ -240,13 +240,26 @@ def test_backend_serving_memo_priming_and_blocks(bench):
 
 
 @pytest.mark.parametrize("kw", [{"governor": object(), "incremental": True},
-                                {"incremental": True}, {"ingest": object()}])
+                                {"rows_per_tick": 10}, {"ingest": object()}])
 def test_later_slices_raise_not_implemented(bench, kw):
+    """Ingest is still a later slice and raises; the incremental plane is
+    ported, so its cases check the reference's own refusals instead: an
+    incremental engine (governed or not) refuses block serving, and a row
+    budget needs incremental mode."""
     data, stream = bench
     tdata = t(data)
     policy = make_policy(tc, te, tdata, stream, "Static")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.LayoutEngine(policy, te.InMemoryBackend(tdata), **kw)
+    if "ingest" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            te.LayoutEngine(policy, te.InMemoryBackend(tdata), **kw)
+    elif "rows_per_tick" in kw:
+        with pytest.raises(ValueError, match="requires incremental"):
+            te.LayoutEngine(policy, te.InMemoryBackend(tdata), **kw)
+    else:
+        engine = te.LayoutEngine(policy, te.InMemoryBackend(tdata), **kw)
+        assert engine.incremental and engine.reorg_executor is not None
+        with pytest.raises(ValueError, match="batch_serve"):
+            engine.run(stream.queries[:5], batch_serve=True)
 
 
 def test_cpu_run_launches_no_kernel(bench):

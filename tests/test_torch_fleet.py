@@ -336,9 +336,20 @@ def test_remove_tenant_releases_scheduler_grants(tenant_data):
 
 
 def test_later_slices_raise_not_implemented(tenant_data):
+    """Ingest events are still a later slice and raise; incremental fleets
+    are ported, so their case checks the mixed-mode refusals instead."""
     d = tenant_data["t0"]
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        te.FleetEngine({}, incremental=True)
+    assert te.FleetEngine({}, incremental=True).incremental
+    with pytest.raises(ValueError, match="mix"):
+        te.FleetEngine({"a": flipflop_engine("port", d),
+                        "b": te.LayoutEngine(
+                            FlipFlopPolicy([tc.build_default_layout(
+                                0, torch.as_tensor(d), 8)], 5, te),
+                            te.InMemoryBackend(torch.as_tensor(d)),
+                            incremental=True)})
+    with pytest.raises(ValueError, match="incremental"):
+        te.FleetEngine({}, incremental=True).add_tenant(
+            "a", flipflop_engine("port", d))
     with pytest.raises(ValueError, match="at least one tenant"):
         te.FleetEngine({})
     assert te.FleetEngine({}, incremental=False).tenant_ids == []
