@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases kernel  # environment + kernel phase only
     python3 chip_smoke.py --phases kernel,fleet_parity,fleet_full
     python3 chip_smoke.py --phases kernel,reorg_parity,reorg_full
+    python3 chip_smoke.py --phases kernel,serve_parity,serve_full
 
 Phases, each printing JSON lines:
 
@@ -12,11 +13,16 @@ Phases, each printing JSON lines:
    the build of every kernel from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together, for sm_90a).
 2. ``kernel``: each kernel (pruning, fleet_scan, decision_fused,
-   move_score) against its plain PyTorch version on the card, at the
-   shapes the main paths give it plus ragged and edge shapes, with
-   CUDA-event times and the least time the card could take (bound).
+   move_score, flash_attention) against its plain PyTorch version on the
+   card, at the shapes the main paths give it plus ragged and edge shapes,
+   with CUDA-event times and the least time the card could take (bound).
    Scans, ``freq`` and move scores must be exact, ``cost`` within rel
-   1e-12.
+   1e-12; flash attention within atol = rtol = 2e-2 in bfloat16 and 1e-5
+   in float32 (qwen3-1.7b's prefill, ragged, smoke, non-causal with
+   ``kv_valid_len``, ``prefix_len`` 96, ``q_offset`` 64, ``kv_valid_len``
+   0, head dims 256 and 192), also timing PyTorch's
+   ``scaled_dot_product_attention`` on the same tensors as ``library_ms``
+   (the port never calls it).
 3. ``parity``: the single-table loop at 20,000 rows x 8 columns and 1,500
    queries under OREO, Static, Greedy and Regret, on the card and on the
    CPU; the traces must be bitwise equal.
@@ -46,12 +52,26 @@ Phases, each printing JSON lines:
    (atomic and incremental, unlimited and a token bucket of 0.002 swaps or
    0.002 x 6,001,215 rows per tick); the unlimited arms must be equal and
    every completed migration ledger must close on alpha.
+9. ``serve_parity``: the serving substrate, card against CPU in float32
+   (TF32 off): qwen3-1.7b at full width cut to 2 layers, weights from a
+   numpy seed carried into both copies by ``convert.transformer_params``,
+   greedy generation of 8 tokens from a (2, 256) prompt -- tokens equal,
+   logits within 1e-3 x max |logit| -- then the examples/serve_model.py
+   slot loop at the smoke config, every request's tokens equal.
+10. ``serve_full``: the ``qwen3-1.7b-serve`` cell -- qwen3-1.7b at full
+   width in bf16, weights drawn on the card from a seeded generator, the
+   slot loop with 4 slots serving 8 requests of 2048-token prompts, 64
+   new tokens each, ``max_len`` 2176; every prefill attention launches
+   the flash kernel (28 per prefill); then one prefill and four decode
+   steps under ``torch.profiler``.
 
 Kernel launch counts are reset just before each main path and read just
 after it; every 50th (fleet) or 100th (single table) scoring call, and
 every 50th planning call, of a main path is checked against the plain
-version on CPU copies of the same plane.  Then the kernels' summary line, the card line, and as the last
-line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+version on CPU copies of the same plane, and the first and every 10th
+flash launch of ``serve_full`` against the plain version on the card.
+Then the kernels' summary line, the card line, and as the last line
+``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device the script exits 2 before printing any
 result.
 """
@@ -82,7 +102,7 @@ PARTITIONS = 32
 SF1_ROWS = 6_001_215          # TPC-H lineitem cardinality at SF 1
 FLEET_SEED = 100              # benchmarks/bench_fleet.py: tenant tables
 PHASES = ("kernel", "parity", "fleet_parity", "full", "fleet_full",
-          "reorg_parity", "reorg_full")
+          "reorg_parity", "reorg_full", "serve_parity", "serve_full")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1601,6 +1621,486 @@ def cell_reorg(device, rows: int = SF1_ROWS, tenants: int = 16,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The serving substrate: flash attention, parity card against CPU, and the
+# qwen3-1.7b-serve cell
+# ---------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_SEED = 1234
+SERVE_SLOTS = 4
+SERVE_REQUESTS = 8
+SERVE_PROMPT = 2048
+SERVE_NEW_TOKENS = 64
+SERVE_MAX_LEN = 2176
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # atol = rtol
+FLASH_SHAPES = [  # (name, B, T, S, Hq, Hkv, dh, kwargs, head_pad)
+    ("qwen3-1.7b prefill", 4, 2048, 2048, 16, 8, 128, {}, 0),
+    ("ragged", 2, 1000, 1000, 16, 8, 128, {}, 0),
+    ("smoke", 2, 16, 16, 4, 2, 16, {}, 0),
+    ("non-causal kv_valid_len 300", 2, 256, 384, 16, 8, 128,
+     {"causal": False, "kv_valid_len": 300}, 0),
+    ("prefix_len 96", 2, 128, 128, 16, 8, 128, {"prefix_len": 96}, 0),
+    ("q_offset 64", 2, 64, 128, 16, 8, 128, {"q_offset": 64}, 0),
+    ("kv_valid_len 0", 2, 128, 128, 16, 8, 128, {"kv_valid_len": 0}, 0),
+    ("dh 256 MQA", 1, 200, 200, 8, 1, 256, {}, 0),
+    ("dh 192 head-strided views", 1, 130, 130, 6, 2, 192, {}, 2),
+]
+
+
+def flash_bound(b, t, s, hq, hkv, dh, kw, dtype, device) -> dict:
+    """Least time: 4 dh flops per visible (query, key) pair of this input
+    (the mask counted exactly) at the type's peak, against q, k, v and out
+    each moved once."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref
+    kv_limit = s if kw.get("kv_valid_len") is None else kw["kv_valid_len"]
+    q_pos = kw.get("q_offset", 0) + torch.arange(t, device=device)
+    mask = ref.visible(q_pos, torch.arange(s, device=device),
+                       kw.get("causal", True), kw.get("prefix_len", 0),
+                       kv_limit)
+    pairs = int(mask.sum())
+    ops = 4 * dh * b * hq * pairs
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = size * dh * (2 * b * t * hq + 2 * b * s * hkv)
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"pairs": pairs, "ops": ops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def sdpa(q, k, v, causal=True, prefix_len=0, kv_valid_len=None,
+         q_offset=0):
+    """PyTorch's own attention on the same (B, T, H, dh) tensors: the
+    yardstick ``library_ms`` times (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ref
+    t, s = q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    plain_causal = (causal and not prefix_len and not q_offset
+                    and kv_valid_len is None and t == s)
+    if not plain_causal:
+        kv_limit = s if kv_valid_len is None else kv_valid_len
+        mask = ref.visible(q_offset + torch.arange(t, device=q.device),
+                           torch.arange(s, device=q.device), causal,
+                           prefix_len, kv_limit)
+    return F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=plain_causal, enable_gqa=True)
+
+
+def flash_operands(rng, b, t, s, hq, hkv, dh, dtype, device, head_pad):
+    """q, k, v from a numpy seed; ``head_pad`` > 0 makes each a view of a
+    tensor with more heads (token and batch strides past the dense ones)."""
+    import numpy as np
+    import torch
+
+    def draw(n, h):
+        a = torch.as_tensor(rng.standard_normal((b, n, h + head_pad, dh),
+                                                dtype=np.float32))
+        return a.to(device=device, dtype=dtype)[:, :, :h]
+    return draw(t, hq), draw(s, hkv), draw(s, hkv)
+
+
+def phase_flash_kernel(device) -> dict:
+    """flash_attention against its plain version on the card over
+    FLASH_SHAPES in bfloat16 and float32 (atol = rtol = 2e-2 and 1e-5),
+    with CUDA-event times of the kernel, the plain version and PyTorch's
+    scaled_dot_product_attention over 50 launches each; returns the
+    kernel's summary at qwen3-1.7b's prefill shape in bfloat16."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _backend
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref
+    rng = np.random.default_rng(3)
+    lib = fa._lib()
+    stream = _backend.stream_handle(device)
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        tol = FLASH_TOL[dname]
+        for name, b, t, s, hq, hkv, dh, kw, pad in FLASH_SHAPES:
+            q, k, v = flash_operands(rng, b, t, s, hq, hkv, dh, dtype,
+                                     device, pad)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            row = {"shape": name, "dtype": dname, "b": b, "t": t, "s": s,
+                   "hq": hq, "hkv": hkv, "dh": dh, **kw,
+                   "q_strides": list(q.stride()),
+                   "max_abs_err": float(err.max()) if err.numel() else 0.0,
+                   "tolerance": tol,
+                   "finite": bool(torch.isfinite(got).all())}
+            ok = bool((err <= tol + tol * want.float().abs()).all())
+            if kw.get("kv_valid_len") == 0:
+                ok = ok and not bool(got.float().abs().max())
+            if not (ok and row["finite"]):
+                emit("kernel", kernel="flash_attention", **row)
+                raise AssertionError(f"flash_attention disagrees with its "
+                                     f"plain version at {name} {dname}")
+            out = torch.empty_like(q, memory_format=torch.contiguous_format)
+            strides = np.array([*q.stride()[:3], *k.stride()[:3],
+                                *v.stride()[:3], *out.stride()[:3]],
+                               dtype=np.int64)
+            kv_valid = s if kw.get("kv_valid_len") is None else kw[
+                "kv_valid_len"]
+            scale = float(np.float32(dh ** -0.5))
+            dcode = fa._DTYPES[dtype]
+
+            def raw():
+                lib.flash_attention(
+                    dcode, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), strides.ctypes.data, b, t, s, hq, hkv,
+                    dh, int(kw.get("causal", True)), kw.get("prefix_len", 0),
+                    kv_valid, kw.get("q_offset", 0), scale, stream)
+            row.update({
+                "ms": cuda_time_ms(raw, 50),
+                "plain_ms": cuda_time_ms(
+                    lambda: ref.flash_attention(q, k, v, **kw), 50),
+                "library_ms": cuda_time_ms(lambda: sdpa(q, k, v, **kw), 50),
+                **flash_bound(b, t, s, hq, hkv, dh, kw, dtype, device)})
+            results.append(row)
+            emit("kernel", kernel="flash_attention", **row)
+    main = results[0]
+    return {"name": "flash_attention.flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:99",
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"]}
+
+
+def numpy_transformer(cfg, seed: int) -> dict:
+    """A float32 parameter tree in the reference's layout (layer leaves
+    stacked on axis 0) from a numpy seed: embed normal * 0.02, dense
+    normal * d_in ** -0.5, norm scales normal * 0.1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            scale)
+
+    n, d, dh, ff = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
+
+    def dense(d_in, d_out):
+        return normal(n, d_in, d_out, scale=d_in ** -0.5)
+    attn = {"wq": dense(d, cfg.n_heads * dh),
+            "wk": dense(d, cfg.n_kv_heads * dh),
+            "wv": dense(d, cfg.n_kv_heads * dh),
+            "wo": dense(cfg.n_heads * dh, d)}
+    if cfg.qk_norm:
+        attn["q_norm"] = normal(n, dh, scale=0.1)
+        attn["k_norm"] = normal(n, dh, scale=0.1)
+    mlp = ({"w_gate": dense(d, ff), "w_up": dense(d, ff),
+            "w_down": dense(ff, d)} if cfg.act in ("swiglu", "geglu")
+           else {"w_in": dense(d, ff), "w_out": dense(ff, d)})
+    return {"embed": normal(cfg.vocab, d, scale=0.02),
+            "layers": {"attn": attn, "mlp": mlp,
+                       "ln1": normal(n, d, scale=0.1),
+                       "ln2": normal(n, d, scale=0.1)},
+            "final_norm": normal(d, scale=0.1),
+            "head": normal(d, cfg.vocab, scale=d ** -0.5)}
+
+
+def serve_slot_loop(model, params, prompts, new_tokens: int, slots: int,
+                    max_len: int, prefill_fn=None, decode_fn=None):
+    """The examples/serve_model.py loop through the port's entry points;
+    returns the batcher and the loop's counts."""
+    from repro_torch import serve
+    batcher = serve.SlotBatcher(slots)
+    for rid, prompt in enumerate(prompts):
+        batcher.submit(serve.Request(rid, prompt, max_new_tokens=new_tokens))
+    fns = serve.build_serve_fns(model, max_len)
+    counts = serve.serve_requests(batcher, prefill_fn or fns[0],
+                                  decode_fn or fns[1], params,
+                                  len(prompts[0]), max_len, model.device)
+    return batcher, counts
+
+
+def phase_serve_parity(device, layers: int = 2, batch: int = 2,
+                       prompt_len: int = 256, steps: int = 8) -> int:
+    """Card against CPU in float32 (TF32 off): qwen3-1.7b at full width cut
+    to ``layers`` layers, weights from a numpy seed in both copies;
+    greedy tokens equal and every step's logits within 1e-3 * max |logit|;
+    then the slot loop at the smoke config, every request's tokens equal.
+    Returns the card's flash launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import convert, serve
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = torch.device("cpu")
+    launches = 0
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=layers)
+    t0 = time.perf_counter()
+    tree = numpy_transformer(cfg, SERVE_SEED)
+    models = {kind: (build_model(cfg, dev), convert.transformer_params(
+        tree, cfg, dev, torch.float32))
+        for kind, dev in (("card", device), ("cpu", cpu))}
+    del tree
+    prompt = np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab, (batch, prompt_len))
+    setup = time.perf_counter() - t0
+    runs = {}
+    for kind, (model, params) in models.items():
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        prefill_fn, decode_fn = serve.build_serve_fns(model,
+                                                      prompt_len + steps)
+        logits, cache = prefill_fn(params, {"tokens": prompt})
+        steps_logits, toks = [logits.float().cpu()], []
+        for _ in range(steps):
+            tok = logits[:, -1].argmax(-1)[:, None]
+            toks.append(tok.cpu())
+            logits, cache = decode_fn(params, {"tokens": tok}, cache)
+            steps_logits.append(logits.float().cpu())
+        generated = serve.greedy_generate(model, params, prompt, steps).cpu()
+        runs[kind] = (torch.cat(toks, 1), steps_logits, generated,
+                      time.perf_counter() - t0)
+        if kind == "card":
+            launches += fa.flash_attention.launches
+    card, host = runs["card"], runs["cpu"]
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(card[1], host[1]))
+    finite = all(bool(torch.isfinite(x).all()) for x in card[1])
+    equal = (torch.equal(card[0], host[0]) and torch.equal(card[2], host[2])
+             and torch.equal(card[0], card[2]))
+    emit("serve_parity", model=f"{SERVE_ARCH} full width, {layers} layers",
+         batch=batch, prompt_len=prompt_len, steps=steps, dtype="float32",
+         setup_seconds=setup, card_seconds=card[3], cpu_seconds=host[3],
+         tokens_equal=equal, max_rel_logit_err=rel, finite=finite,
+         flash_launches_card=launches)
+    if not (equal and finite and rel <= 1e-3):
+        raise AssertionError(f"serve_parity: card and CPU differ (tokens "
+                             f"equal {equal}, logits rel err {rel})")
+    del models, runs
+
+    # The examples/serve_model.py loop at the smoke config.
+    cfg = get_arch(SERVE_ARCH, smoke=True)
+    tree = numpy_transformer(cfg, SERVE_SEED + 1)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 16) for _ in range(10)]
+    done = {}
+    for kind, dev in (("card", device), ("cpu", cpu)):
+        fa.flash_attention.launches = 0
+        model = build_model(cfg, dev)
+        params = convert.transformer_params(tree, cfg, dev, torch.float32)
+        batcher, counts = serve_slot_loop(model, params, prompts, 12, 4, 64)
+        done[kind] = ([(r.request_id, r.generated)
+                       for r in batcher.completed], counts)
+        if kind == "card":
+            launches += fa.flash_attention.launches
+    equal = done["card"][0] == done["cpu"][0]
+    emit("serve_parity", model=f"{SERVE_ARCH} smoke, slot loop",
+         requests=len(prompts), completed=len(done["card"][0]),
+         counts=done["card"][1], tokens_equal=equal,
+         flash_launches_card=launches)
+    if not equal or len(done["card"][0]) != len(prompts):
+        raise AssertionError("serve_parity: the slot loop's tokens differ "
+                             "between card and CPU")
+    if launches <= 0:
+        raise AssertionError("serve_parity: the card runs launched no "
+                             "flash_attention kernel")
+    return launches
+
+
+class FlashAudit:
+    """Holds the first and every ``every``-th flash launch of a main path
+    against the plain version on the same card tensors.  It calls the
+    kernel's wrapper once per call and launches no kernel itself, so the
+    wrapper's count stays the main path's."""
+
+    def __init__(self, every: int):
+        from repro_torch.models import layers
+        self.layers, self.every = layers, every
+        self.inner = layers.flash_attention
+        self.calls = self.checked = 0
+        self.max_abs_err = 0.0
+        layers.flash_attention = self
+
+    def close(self) -> None:
+        self.layers.flash_attention = self.inner
+
+    def __call__(self, q, k, v, **kw):
+        from repro_torch.kernels.flash_attention import ref
+        got = self.inner(q, k, v, **kw)
+        self.calls += 1
+        if (self.calls - 1) % self.every == 0:
+            want = ref.flash_attention(q, k, v, **kw).float()
+            err = (got.float() - want).abs()
+            tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+            self.max_abs_err = max(self.max_abs_err, float(err.max()))
+            if not bool((err <= tol + tol * want.abs()).all()):
+                raise AssertionError(f"serve: flash launch {self.calls} "
+                                     f"differs from the plain version by "
+                                     f"{float(err.max())}")
+            self.checked += 1
+        return got
+
+
+def profile_window(fn) -> dict:
+    """Wall time of ``fn`` (ending in a synchronize) under torch.profiler,
+    the device time of its kernels (one stream, so their sum is the busy
+    time), the idle share and the kernels that take the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy if rows else None,
+            "idle_share": 1.0 - busy / wall if rows else None,
+            "top_kernels": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
+                            for us, k, n in rows[:8]]}
+
+
+def profile_serve(model, params, prompts, max_len: int, name: str) -> None:
+    """One prefill of a full slot batch and four decode steps at the end of
+    the cache, each under torch.profiler (after the main path's counts are
+    read)."""
+    import numpy as np
+    import torch
+    from repro_torch import serve
+    prefill_fn, decode_fn = serve.build_serve_fns(model, max_len)
+    tokens = torch.as_tensor(np.stack(prompts), device=model.device)
+    out = {}
+
+    def prefill():
+        out["cache"] = prefill_fn(params, {"tokens": tokens})[1]
+    pre = profile_window(prefill)
+    cache = out["cache"]
+    cache["index"] = max_len - 5
+    tok = tokens[:, :1]
+
+    def decode():
+        c = cache
+        for _ in range(4):
+            c = decode_fn(params, {"tokens": tok}, c)[1]
+    dec = profile_window(decode)
+    emit("serve_full", cell=name, profile="prefill (one slot batch)", **pre)
+    emit("serve_full", cell=name, profile="4 decode steps at the cache's "
+         "end", **dec)
+
+
+def cell_serve(device, slots: int = SERVE_SLOTS,
+               requests: int = SERVE_REQUESTS,
+               prompt_len: int = SERVE_PROMPT,
+               new_tokens: int = SERVE_NEW_TOKENS,
+               max_len: int = SERVE_MAX_LEN, arch: str = SERVE_ARCH) -> int:
+    """qwen3-1.7b-serve: qwen3-1.7b at full width (hf:Qwen/Qwen3-1.7B,
+    configs/qwen3_1p7b.py) in bf16 with weights drawn on the card from a
+    seeded generator, serving ``requests`` seeded prompts through the
+    examples/serve_model.py slot loop; returns the flash launches."""
+    import numpy as np
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import build_model
+    name = f"{arch}-serve"
+    cfg = get_arch(arch)
+    model = build_model(cfg, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SERVE_SEED)
+    params = model.init_params(gen)
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = [rng.integers(0, cfg.vocab, prompt_len)
+               for _ in range(requests)]
+    spec = model.cache_spec(slots, max_len)["k"]
+    cache_bytes = 2 * int(np.prod(spec[0])) * spec[1].itemsize
+    prefill_fn, decode_fn = serve.build_serve_fns(model, max_len)
+    timing = {"prefill_s": 0.0, "decode_s": 0.0, "prompt_tokens": 0,
+              "finite": True}
+
+    def timed(fn, key):
+        def run(params, batch, *rest):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = fn(params, batch, *rest)
+            timing["finite"] &= bool(torch.isfinite(logits).all())
+            timing[key] += time.perf_counter() - t
+            if key == "prefill_s":
+                timing["prompt_tokens"] += batch["tokens"].numel()
+            return logits, cache
+        return run
+    audit = FlashAudit(every=10)
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    try:
+        batcher, counts = serve_slot_loop(
+            model, params, prompts, new_tokens, slots, max_len,
+            timed(prefill_fn, "prefill_s"), timed(decode_fn, "decode_s"))
+        torch.cuda.synchronize()
+    finally:
+        audit.close()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    generated = sum(len(r.generated) for r in batcher.completed)
+    in_range = all(0 <= t < cfg.vocab for r in batcher.completed
+                   for t in r.generated)
+    emit("serve_full", cell=name, source=cfg.source,
+         params=cfg.num_params(), weight_bytes=weight_bytes,
+         init_seconds=init_seconds, slots=slots, requests=requests,
+         prompt_len=prompt_len, new_tokens=new_tokens, max_len=max_len,
+         kv_cache_bytes=cache_bytes, **counts,
+         prefill_seconds=timing["prefill_s"],
+         prompt_tokens=timing["prompt_tokens"],
+         prompt_tokens_per_s=timing["prompt_tokens"] / timing["prefill_s"],
+         decode_seconds=timing["decode_s"],
+         decode_tokens_per_s=generated / timing["decode_s"],
+         seconds_per_output_token=timing["decode_s"]
+         / counts["decode_steps"],
+         wall_seconds=wall, requests_completed=len(batcher.completed),
+         tokens_generated=generated, flash_launches=launches,
+         flash_launches_per_prefill=launches / counts["prefills"],
+         flash_checked=audit.checked, flash_max_abs_err=audit.max_abs_err,
+         logits_finite=timing["finite"], tokens_in_vocab=in_range,
+         peak_bytes=torch.cuda.max_memory_allocated(device),
+         card=card_line())
+    profile_serve(model, params, prompts[:slots], max_len, name)
+    if len(batcher.completed) != requests or generated != requests * \
+            new_tokens:
+        raise AssertionError(f"{name}: {len(batcher.completed)} requests "
+                             f"and {generated} tokens completed")
+    if launches != cfg.n_layers * counts["prefills"] or launches <= 0:
+        raise AssertionError(f"{name}: {launches} flash launches for "
+                             f"{counts['prefills']} prefills")
+    if not (timing["finite"] and in_range):
+        raise AssertionError(f"{name}: non-finite logits or tokens out of "
+                             f"the vocabulary")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1632,13 +2132,17 @@ def main(argv=None) -> int:
                 for k, v in _backend.build_logs.items()})
 
     kernels = {"pruning": phase_kernel(device), **phase_fleet_kernels(device),
-               "move_score": phase_move_score_kernel(device)}
+               "move_score": phase_move_score_kernel(device),
+               "flash_attention": phase_flash_kernel(device)}
     if "parity" in phases:
         phase_parity(device)
     if "fleet_parity" in phases:
         phase_fleet_parity(device)
     if "reorg_parity" in phases:
         phase_reorg_parity(device)
+    if "serve_parity" in phases:
+        phase_serve_parity(device)
+        release(device)
     runs = {}
     if "full" in phases:
         runs["tpch-sf10-oreo"] = {"pruning": phase_full(device,
@@ -1649,6 +2153,9 @@ def main(argv=None) -> int:
     if "reorg_full" in phases:
         for arm, counts in cell_reorg(device).items():
             runs[f"fleet16-sf1-oreo-incr-bucket/{arm}"] = counts
+        release(device)
+    if "serve_full" in phases:
+        runs[f"{SERVE_ARCH}-serve"] = {"flash_attention": cell_serve(device)}
         release(device)
     for name, summary in kernels.items():
         summary["launches"] = (sum(r.get(name, 0) for r in runs.values())

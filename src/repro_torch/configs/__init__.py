@@ -1,0 +1,8 @@
+"""Architecture and shape configuration registry (dense family so far)."""
+from repro_torch.configs.base import (LATER_ARCHS, LATER_FAMILIES, SHAPES,
+                                      ArchConfig, MoEConfig, ShapeConfig,
+                                      SSMConfig, get_arch, list_archs)
+
+__all__ = ["LATER_ARCHS", "LATER_FAMILIES", "SHAPES", "ArchConfig",
+           "MoEConfig", "ShapeConfig", "SSMConfig", "get_arch",
+           "list_archs"]

@@ -7,6 +7,9 @@ packed node arrays (``cols``, ``thresholds``, ``lefts``, ``rights``,
 ``boundaries``).  These functions rebuild the zone maps and the router in
 this package, on a given device (the card by default), from those arrays
 alone; ``repro_torch.core.layouts.Layout`` joins them into a layout.
+
+:func:`transformer_params` carries a transformer's parameter tree across
+the same way: nested dicts of numpy arrays in the reference's layout.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import torch
 
 from repro_torch.core import layouts, qdtree
 from repro_torch.kernels._backend import resolve_device, to_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer
 
 Device = Union[None, str, torch.device]
 
@@ -49,3 +54,46 @@ def default_router(k: int, sort_col: Optional[int],
         int(k), None if sort_col is None else int(sort_col),
         None if boundaries is None else to_device(boundaries, dev))
 
+
+
+def _weight(a, device: torch.device, dtype) -> torch.Tensor:
+    """A numpy array (bfloat16 arrays included) as a tensor on ``device``,
+    cast to ``dtype`` unless it is None."""
+    a = np.array(a, order="C")              # a writable copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes: reinterpret the bits
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def transformer_params(tree, cfg, device: Device = None,
+                       dtype: Optional[torch.dtype] = None
+                       ) -> transformer.Transformer:
+    """The port's dense transformer with the weights of ``tree``.
+
+    ``tree`` is the reference's parameter tree as nested dicts of numpy
+    arrays: ``embed`` (V, d), ``layers`` with every leaf stacked on axis 0
+    (``attn`` {wq, wk, wv, wo, q_norm, k_norm}, ``ln1``, ``ln2``, ``mlp``),
+    ``final_norm`` (d,) and ``head`` (d, V).  Each leaf keeps its dtype
+    unless ``dtype`` is given.
+    """
+    dev = resolve_device(device)
+    transformer.check_family(cfg)
+
+    def w(a):
+        return _weight(a, dev, dtype)
+
+    lay = tree["layers"]
+    attn, mlp = lay["attn"], lay["mlp"]
+    blocks = []
+    for i in range(cfg.n_layers):
+        norms = ((w(attn["q_norm"][i]), w(attn["k_norm"][i]))
+                 if cfg.qk_norm else (None, None))
+        blocks.append(transformer.Block(
+            L.Attention(w(attn["wq"][i]), w(attn["wk"][i]), w(attn["wv"][i]),
+                        w(attn["wo"][i]), *norms),
+            L.MLP(**{name: w(leaf[i]) for name, leaf in mlp.items()}),
+            w(lay["ln1"][i]), w(lay["ln2"][i])))
+    return transformer.Transformer(w(tree["embed"]), blocks,
+                                   w(tree["final_norm"]), w(tree["head"]))

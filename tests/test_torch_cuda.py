@@ -440,3 +440,129 @@ def test_incremental_fleet_on_the_card_equals_the_cpu(cuda_device):
                     card.scheduler_stats) == (cpu.swaps_deferred,
                                               cpu.deferred_ticks,
                                               cpu.scheduler_stats)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention and the serving substrate
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # atol = rtol
+
+
+def flash_operands(seed, b, t, s, hq, hkv, dh, dtype, device, head_pad=0):
+    rng = np.random.default_rng(seed)
+
+    def draw(n, h):
+        a = torch.as_tensor(rng.standard_normal((b, n, h + head_pad, dh),
+                                                dtype=np.float32))
+        return a.to(device=device, dtype=dtype)[:, :, :h]
+    return draw(t, hq), draw(s, hkv), draw(s, hkv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,s,hq,hkv,dh,kw,pad", [
+    (2, 16, 16, 4, 2, 16, {}, 0),
+    (2, 300, 300, 16, 8, 128, {}, 0),
+    (1, 1000, 1000, 8, 1, 64, {}, 0),
+    (2, 100, 230, 4, 2, 128, {"causal": False, "kv_valid_len": 150}, 0),
+    (1, 128, 128, 4, 4, 128, {"prefix_len": 96}, 0),
+    (2, 64, 128, 4, 2, 128, {"q_offset": 64}, 0),
+    (2, 70, 70, 4, 2, 128, {"kv_valid_len": 0}, 0),
+    (1, 90, 90, 4, 1, 256, {}, 0),
+    (1, 65, 65, 6, 2, 80, {}, 3),
+    (1, 33, 0, 2, 1, 32, {"causal": False}, 0),
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, b, t, s, hq, hkv,
+                                              dh, kw, pad, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fref
+    q, k, v = flash_operands(0, b, t, s, hq, hkv, dh, dtype, cuda_device,
+                             pad)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fref.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, t, hq, dh)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if kw.get("kv_valid_len") == 0 or s == 0:
+        assert not got.float().abs().max()
+
+
+def test_flash_attention_refuses_what_the_kernel_cannot_take(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v = flash_operands(1, 1, 8, 8, 2, 1, 300, torch.float32,
+                             cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, k, v)
+    q, k, v = (x.double() for x in flash_operands(
+        1, 1, 8, 8, 2, 1, 16, torch.float32, cuda_device))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q, k, v)
+    q, k, v = flash_operands(1, 1, 8, 8, 2, 1, 16, torch.float32,
+                             cuda_device)
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_attention(q, k.cpu(), v)
+
+
+def test_serving_on_the_card_equals_the_cpu(cuda_device):
+    """qwen3's smoke model in float32 (TF32 off): greedy tokens and logits
+    and the slot loop's tokens, card against CPU, with every prefill
+    attention launching the kernel."""
+    from repro_torch import convert, serve
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("qwen3-1.7b", smoke=True)
+    model = build_model(cfg)
+    assert model.device.type == "cuda"
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    card_params = model.init_params(gen)
+    assert card_params.embed.is_cuda
+    tree = _tree_of(card_params)
+    params = {dev: convert.transformer_params(tree, cfg, dev, torch.float32)
+              for dev in ("cuda", "cpu")}
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (3, 20))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg, dev)
+        before = fa.flash_attention.launches
+        toks = serve.greedy_generate(m, params[dev], prompt, steps=6)
+        with torch.inference_mode():
+            logits = m.forward(params[dev], {"tokens": prompt})
+        rng = np.random.default_rng(2)
+        batcher = serve.SlotBatcher(2)
+        for rid in range(5):
+            batcher.submit(serve.Request(rid, rng.integers(0, cfg.vocab, 8),
+                                         max_new_tokens=4))
+        pf, dc = serve.build_serve_fns(m, 32)
+        serve.serve_requests(batcher, pf, dc, params[dev], 8, 32, m.device)
+        out[dev] = (toks.cpu(), logits.cpu(),
+                    [(r.request_id, r.generated) for r in batcher.completed],
+                    fa.flash_attention.launches - before)
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-4,
+                               rtol=1e-4)
+    assert out["cuda"][2] == out["cpu"][2] and len(out["cuda"][2]) == 5
+    assert out["cuda"][3] > 0 and out["cpu"][3] == 0
+
+
+def _tree_of(params):
+    """The reference-layout numpy tree of a port transformer."""
+    def stack(get):
+        return np.stack([get(b).float().cpu().numpy() for b in params.layers])
+    attn = {n: stack(lambda b, n=n: getattr(b.attn, n))
+            for n in ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+            if getattr(params.layers[0].attn, n) is not None}
+    mlp = {n: stack(lambda b, n=n: getattr(b.mlp, n))
+           for n, _ in params.layers[0].mlp.named_parameters()}
+    return {"embed": params.embed.float().cpu().numpy(),
+            "layers": {"attn": attn, "mlp": mlp,
+                       "ln1": stack(lambda b: b.ln1),
+                       "ln2": stack(lambda b: b.ln2)},
+            "final_norm": params.final_norm.float().cpu().numpy(),
+            "head": params.head.float().cpu().numpy()}
