@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases kernel,fleet_parity,fleet_full
     python3 chip_smoke.py --phases kernel,reorg_parity,reorg_full
     python3 chip_smoke.py --phases kernel,serve_parity,serve_full
+    python3 chip_smoke.py --phases kernel,zorder_parity,zorder_full
 
 Phases, each printing JSON lines:
 
@@ -13,10 +14,13 @@ Phases, each printing JSON lines:
    the build of every kernel from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together, for sm_90a).
 2. ``kernel``: each kernel (pruning, fleet_scan, decision_fused,
-   move_score, flash_attention) against its plain PyTorch version on the
-   card, at the shapes the main paths give it plus ragged and edge shapes,
-   with CUDA-event times and the least time the card could take (bound).
-   Scans, ``freq`` and move scores must be exact, ``cost`` within rel
+   move_score, flash_attention, zorder) against its plain PyTorch version
+   on the card, at the shapes the main paths give it plus ragged and edge
+   shapes, with CUDA-event times and the least time the card could take
+   (bound).  Scans, ``freq``, move scores and Z-order keys (both lanes:
+   the TPU kernel's float32 one at its bench shape 1,000,000 x 3, and the
+   layout generator's float64 one on the 1,199,721-row sample, contiguous
+   and read in place from 32 columns) must be exact, ``cost`` within rel
    1e-12; flash attention within atol = rtol = 2e-2 in bfloat16 and 1e-5
    in float32 (qwen3-1.7b's prefill, ragged, smoke, non-causal with
    ``kv_valid_len``, ``prefix_len`` 96, ``q_offset`` 64, ``kv_valid_len``
@@ -64,12 +68,21 @@ Phases, each printing JSON lines:
    new tokens each, ``max_len`` 2176; every prefill attention launches
    the flash kernel (28 per prefill); then one prefill and four decode
    steps under ``torch.profiler``.
+11. ``zorder_parity``: the six methods of Figs. 3 and 4 (Static, Greedy,
+   Regret, OREO, MTS Optimal, Offline Optimal) under the Z-order generator
+   on the tpch-, tpcds- and telemetry-like tables at 20,000 rows and 1,500
+   queries, card against CPU; every trace bitwise equal.
+12. ``zorder_full``: the ``tpch-sf10-zorder`` cell -- the same six methods
+   over ``full``'s table and traffic (built once for both cells) under the
+   Z-order generator (3 key columns, 16 bits, a 1,199,721-row sample);
+   then the full-table route timed alone.
 
 Kernel launch counts are reset just before each main path and read just
 after it; every 50th (fleet) or 100th (single table) scoring call, and
 every 50th planning call, of a main path is checked against the plain
 version on CPU copies of the same plane, and the first and every 10th
-flash launch of ``serve_full`` against the plain version on the card.
+flash launch of ``serve_full`` and the first and every 10th zorder
+launch of ``zorder_full``, against the plain version on the card.
 Then the kernels' summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device the script exits 2 before printing any
@@ -102,7 +115,8 @@ PARTITIONS = 32
 SF1_ROWS = 6_001_215          # TPC-H lineitem cardinality at SF 1
 FLEET_SEED = 100              # benchmarks/bench_fleet.py: tenant tables
 PHASES = ("kernel", "parity", "fleet_parity", "full", "fleet_full",
-          "reorg_parity", "reorg_full", "serve_parity", "serve_full")
+          "reorg_parity", "reorg_full", "serve_parity", "serve_full",
+          "zorder_parity", "zorder_full")
 
 
 def emit(phase: str, **fields) -> None:
@@ -365,13 +379,13 @@ def phase_parity(device) -> None:
     emit("parity", kernel_launches_card=launches)
 
 
-def phase_full(device, total_queries: int, rows: int = FULL_ROWS) -> int:
-    """The tpch-sf10-oreo cell; returns the kernel launches of its run."""
+def sf10_inputs(device, total_queries: int, rows: int = FULL_ROWS):
+    """The table and traffic of the tpch-sf10 cells (tpch-sf10-oreo and
+    tpch-sf10-zorder share them): built once, on the card."""
     import numpy as np
     import torch
-    from repro_torch import core, engine
+    from repro_torch import core
     from repro_torch.data import build_table
-    from repro_torch.kernels.pruning import pruning, ref
     if total_queries < MIN_QUERIES:
         raise ValueError(f"--queries below {MIN_QUERIES}")
     if total_queries != FULL_QUERIES:
@@ -389,10 +403,22 @@ def phase_full(device, total_queries: int, rows: int = FULL_ROWS) -> int:
         templates, data.amin(dim=0).cpu().numpy(),
         data.amax(dim=0).cpu().numpy(), total_queries=total_queries,
         seed=20, num_segments=SEGMENTS)
-    emit("full", cell="tpch-sf10-oreo", rows=rows, columns=FULL_COLUMNS,
+    emit("full", table="tpch-sf10", rows=rows, columns=FULL_COLUMNS,
          queries=total_queries, alpha=ALPHA, partitions=PARTITIONS,
          table_bytes=data.numel() * 8, table_seconds=table_seconds,
          peak_bytes=torch.cuda.max_memory_allocated(device))
+    return data, stream
+
+
+def phase_full(device, data, stream) -> int:
+    """The tpch-sf10-oreo cell; returns the kernel launches of its run."""
+    import numpy as np
+    import torch
+    from repro_torch import core, engine
+    from repro_torch.kernels.pruning import pruning, ref
+    total_queries = len(stream)
+    emit("full", cell="tpch-sf10-oreo", rows=len(data),
+         columns=data.shape[1], queries=total_queries)
     peaks = [torch.cuda.max_memory_allocated(device)]
     results, bound = {}, {}
     pruning.scan_matrix.launches = 0
@@ -779,10 +805,12 @@ def kernel_counters() -> dict:
     from repro_torch.kernels.fleet_scan import fleet_scan
     from repro_torch.kernels.move_score import move_score
     from repro_torch.kernels.pruning import pruning
+    from repro_torch.kernels.zorder import zorder
     return {"pruning": pruning.scan_matrix,
             "fleet_scan": fleet_scan.scan_fleet,
             "decision_fused": decision_fused.fused_decision,
-            "move_score": move_score.move_scores}
+            "move_score": move_score.move_scores,
+            "zorder": zorder.zorder_keys64}
 
 
 class PlanAudit:
@@ -2101,6 +2129,391 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Z-order keys and the paper's evaluation baselines: the zorder kernel,
+# the six methods card against CPU, and the tpch-sf10-zorder cell
+# ---------------------------------------------------------------------------
+
+INT_OPS_PER_S = FP32_OPS_PER_S  # no integer row in the data sheet's table:
+#                                 integer operations count at the float32 rate
+ZORDER_METHODS = ("Static", "Greedy", "Regret", "OREO", "MTS Optimal",
+                  "Offline Optimal")
+ZORDER_CASES = [  # (name, lane, rows, columns, key columns, bits, narrow)
+    ("a: bench 1,000,000 x 3, bits 10", "a", 1_000_000, 3, 3, 10, False),
+    ("a: m 4, bits 8, values past lo/hi", "a", 4_097, 4, 4, 8, True),
+    ("a: m 5, bits 6, values past lo/hi", "a", 1_025, 5, 5, 6, True),
+    ("a: m 1, bits 16", "a", 64, 1, 1, 16, False),
+    ("a: m 2, bits 16, a flat column (hi == lo)", "a", 1_024, 2, 2, 16,
+     True),
+    ("a: m 32, bits 1", "a", 77, 32, 32, 1, False),
+    ("a: one row", "a", 1, 3, 3, 10, False),
+    ("b: sample 1,199,721 x 3, contiguous", "b", 1_199_721, 3, 3, 16,
+     False),
+    ("b: sample 1,199,721 rows of 32 columns, 3 keyed in place", "b",
+     1_199_721, 32, 3, 16, False),
+    ("b: m 4 of 8 columns, values past lo/hi", "b", 4_099, 8, 4, 16, True),
+    ("b: m 5 of 8 columns, bits past 63 dropped", "b", 4_099, 8, 5, 16,
+     True),
+    ("b: one row", "b", 1, 8, 3, 16, False),
+]
+
+
+def zorder_bound(rows: int, m: int, bits: int, itemsize: int) -> dict:
+    """Least time for ``rows`` keys of ``m`` columns: each value read once,
+    lo/hi read once, one int64 key written per row; per value 4 float
+    operations (subtract, divide, clamp, multiply) in the value's type and
+    4 integer operations per kept bit (shift, mask, shift, or)."""
+    nbytes = rows * m * itemsize + 2 * m * itemsize + rows * 8
+    float_ops = 4 * rows * m
+    int_ops = 4 * rows * min(m * bits, 64)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (float_ops / (FP64_OPS_PER_S if itemsize == 8
+                          else FP32_OPS_PER_S)
+             + int_ops / INT_OPS_PER_S) * 1e3
+    return {"bytes": nbytes, "ops": float_ops + int_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def zorder_operands(rng, lane, rows, columns, m, narrow, device):
+    """Values (lane a: (rows, m) float32) or a table (lane b: (rows,
+    columns) float64 with m key columns), and lo/hi; ``narrow`` takes lo/hi
+    from the first third of the rows and flattens one column (hi == lo)."""
+    import numpy as np
+    import torch
+    if lane == "a":
+        vals = rng.uniform(-5, 5, (rows, m)).astype(np.float32)
+        cols = list(range(m))
+    else:
+        vals = rng.uniform(-50, 150, (rows, columns))
+        cols = sorted(rng.choice(columns, m, replace=False).tolist())
+    sub = vals[: max(1, rows // 3) if narrow else rows][:, cols]
+    lo, hi = sub.min(0), sub.max(0)
+    if narrow:
+        hi[0] = lo[0]
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+    return dev(vals), cols, dev(lo), dev(hi)
+
+
+def phase_zorder_kernel(device) -> dict:
+    """The zorder kernel against its plain version, bitwise, at the bench
+    shape, the sample shapes of the main path and edge shapes, timed by
+    CUDA events; returns the summary of the main path's sample shape."""
+    import ctypes
+    import numpy as np
+    import torch
+    from repro_torch.kernels.zorder import ref as zref, zorder
+    rng = np.random.default_rng(15)
+    lib = zorder._lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    results = []
+    for name, lane, rows, columns, m, bits, narrow in ZORDER_CASES:
+        vals, cols, lo, hi = zorder_operands(rng, lane, rows, columns, m,
+                                             narrow, device)
+        out = torch.empty(rows, dtype=torch.int64, device=device)
+        if lane == "a":
+            def wrapper():
+                return zorder.zorder_keys(vals, lo, hi, bits)
+
+            def plain():
+                return zref.zorder_keys(vals, lo, hi, bits)
+
+            def raw():
+                lib.zorder_keys32(vals.data_ptr(), lo.data_ptr(),
+                                  hi.data_ptr(), out.data_ptr(), rows, m,
+                                  bits, stream)
+        else:
+            host_cols = (ctypes.c_int64 * m)(*cols)
+
+            def wrapper():
+                return zorder.zorder_keys64(vals, cols, lo, hi)
+
+            def plain():
+                return zref.zorder_keys64(vals, cols, lo, hi)
+
+            def raw():
+                lib.zorder_keys64(vals.data_ptr(), vals.stride(0),
+                                  ctypes.addressof(host_cols), lo.data_ptr(),
+                                  hi.data_ptr(), out.data_ptr(), rows, m,
+                                  stream)
+        got, want = wrapper(), plain()
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        if mismatches:
+            raise AssertionError(f"zorder kernel disagrees at {name}: "
+                                 f"{mismatches} of {rows} keys differ")
+        reps = 200 if rows > 10_000 else 1000
+        row = {"shape": name, "lane": lane, "rows": rows,
+               "columns": columns, "zcols": cols if lane == "b" else None,
+               "bits": bits, "equal": True, "max_abs_err": 0,
+               "ms": cuda_time_ms(raw, reps),
+               "wrapper_ms": cuda_time_ms(wrapper, reps),
+               "plain_ms": cuda_time_ms(plain, 20),
+               **zorder_bound(rows, m, bits, vals.element_size())}
+        results.append(row)
+        emit("kernel", kernel="zorder", **row)
+    main = next(r for r in results if r["lane"] == "b"
+                and r["columns"] == FULL_COLUMNS)
+    return {"name": "zorder", "route": "cuda",
+            "source": "src/repro_torch/csrc/zorder.cu",
+            "replaces": "src/repro/kernels/zorder/zorder.py:49",
+            "max_abs_err": 0, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None}
+
+
+def zorder_methods(data, stream, alpha, parts, gen):
+    """Makers of the six methods of Figs. 3 and 4 over one generator."""
+    from repro_torch import engine
+    makers = policies(data, stream, alpha, parts, gen=gen)
+    return {
+        "Static": makers["Static"], "Greedy": makers["Greedy"],
+        "Regret": makers["Regret"], "OREO": makers["OREO"],
+        "MTS Optimal": lambda: engine.MTSOptimalPolicy(
+            data, stream, gen, alpha, target_partitions=parts),
+        "Offline Optimal": lambda: engine.OfflineOptimalPolicy(
+            data, stream, gen, alpha, target_partitions=parts)}
+
+
+def zorder_bench(dataset: str, rows: int, queries: int):
+    """benchmarks/common.py build_bench, cut to ``rows`` rows, 16 columns
+    (telemetry keeps its 9 and its own templates), 8 templates, 6
+    segments; the table on the CPU."""
+    import numpy as np
+    from repro_torch import core
+    from repro_torch.data import DATASETS, telemetry_templates, widen_columns
+    data, _ = DATASETS[dataset](rows, seed=0, device="cpu")
+    rng = np.random.default_rng(10)
+    if dataset == "telemetry":
+        templates = telemetry_templates(data.shape[1], seed=0)
+    else:
+        data = widen_columns(data, 16, seed=0)
+        templates = core.make_templates(8, 16, rng, cols_per_template=(1, 2),
+                                        selectivity_range=(0.02, 0.10))
+    stream = core.generate_workload(
+        templates, data.amin(dim=0).numpy(), data.amax(dim=0).numpy(),
+        total_queries=queries, seed=20, num_segments=6)
+    return data, stream
+
+
+def phase_zorder_parity(device, rows: int = 20_000,
+                        queries: int = 1_500) -> int:
+    """The six methods under the Z-order generator on tpch, tpcds and
+    telemetry, card against CPU; traces bitwise equal.  Returns the card
+    runs' zorder launches."""
+    import numpy as np
+    import torch
+    from repro_torch import core, engine
+    from repro_torch.kernels.zorder import zorder
+    launches = 0
+    for dataset in ("tpch", "tpcds", "telemetry"):
+        base, stream = zorder_bench(dataset, rows, queries)
+        traces = {}
+        for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            data = base.to(dev)
+            before = zorder.zorder_keys64.launches
+            gen = core.make_generator("zorder")
+            for name, make in zorder_methods(data, stream, 40.0, 16,
+                                             gen).items():
+                t0 = time.perf_counter()
+                res = engine.LayoutEngine(make(), engine.InMemoryBackend(
+                    data)).run(stream, name=name)
+                traces[side, name] = (res, time.perf_counter() - t0)
+            if side == "card":
+                launches += zorder.zorder_keys64.launches - before
+        for name in ZORDER_METHODS:
+            (a, ta), (b, tb) = traces["card", name], traces["cpu", name]
+            same = (np.array_equal(a.query_costs, b.query_costs)
+                    and a.reorg_indices == b.reorg_indices
+                    and np.array_equal(a.state_seq, b.state_seq))
+            emit("zorder_parity", dataset=dataset, method=name,
+                 bitwise_equal=same, total_cost=a.total_cost,
+                 moves=a.num_reorgs, card_seconds=ta, cpu_seconds=tb)
+            if not same:
+                raise AssertionError(f"zorder_parity: {dataset} {name} "
+                                     f"trace differs card vs CPU")
+    if launches <= 0:
+        raise AssertionError("zorder_parity: the card runs never launched "
+                             "the zorder kernel")
+    emit("zorder_parity", rows=rows, queries=queries,
+         zorder_launches_card=launches)
+    return launches
+
+
+class ZOrderAudit:
+    """Holds the first and every ``every``-th zorder launch of a main path
+    against the plain version on the same card tensors (in row chunks, so
+    the check's temporaries stay small beside the table).  It calls the
+    wrapper once per call and launches no kernel itself."""
+
+    def __init__(self, every: int, chunk: int = 1 << 22):
+        from repro_torch.kernels.zorder import ops
+        self.ops, self.every, self.chunk = ops, every, chunk
+        self.inner = ops.zorder_keys64
+        self.calls = self.checked = 0
+        self.rows_checked = 0
+        ops.zorder_keys64 = self
+
+    def close(self) -> None:
+        self.ops.zorder_keys64 = self.inner
+
+    def __call__(self, table, zcols, col_lo, col_hi):
+        import torch
+        from repro_torch.kernels.zorder import ref as zref
+        got = self.inner(table, zcols, col_lo, col_hi)
+        self.calls += 1
+        if (self.calls - 1) % self.every == 0:
+            for s in range(0, len(table), self.chunk):
+                want = zref.zorder_keys64(table[s:s + self.chunk], zcols,
+                                          col_lo, col_hi)
+                if not torch.equal(got[s:s + self.chunk], want):
+                    raise AssertionError(f"zorder_full: zorder launch "
+                                         f"{self.calls} differs from the "
+                                         f"plain version at rows {s}..")
+            self.checked += 1
+            self.rows_checked += len(table)
+        return got
+
+
+def zorder_stages(device, data, stream) -> dict:
+    """Seconds and device memory above the resident table of one Z-order
+    build, measured alone, beside the host's share of it: the sample draw
+    (numpy's ``choice`` without replacement, the reference's stream)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import make_generator
+    n = len(data)
+    m = min(max(int(n * 0.02), min(n, 4096)), n)
+    t0 = time.perf_counter()
+    np.random.default_rng(0).choice(n, size=m, replace=False)
+    draw = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    make_generator("zorder")(10_000, data, stream.queries[:200], PARTITIONS)
+    torch.cuda.synchronize()
+    return {"build_seconds": time.perf_counter() - t0,
+            "build_bytes": torch.cuda.max_memory_allocated(device) - base,
+            "sample_rows": m, "host_sample_draw_seconds": draw}
+
+
+def cell_zorder(device, data, stream) -> dict:
+    """tpch-sf10-zorder: tpch-sf10-oreo's table and traffic under the
+    Z-order generator (3 key columns, 16 bits, a 2 % sample), the six
+    methods of Figs. 3 and 4; returns the main path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import core, engine
+    from repro_torch.kernels.pruning import pruning, ref
+    from repro_torch.kernels.zorder import ref as zref, zorder
+    queries = len(stream)
+    results, counts = {}, {"zorder": 0, "pruning": 0}
+    for name in ZORDER_METHODS:
+        gen = TimedGenerator(core.make_generator("zorder"))
+        make = zorder_methods(data, stream, ALPHA, PARTITIONS, gen)[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        audit = ZOrderAudit(every=10)
+        zorder.zorder_keys.launches = zorder.zorder_keys64.launches = 0
+        pruning.scan_matrix.launches = 0
+        try:
+            t0 = time.perf_counter()
+            policy = make()
+            backend = engine.InMemoryBackend(data)
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = engine.LayoutEngine(policy, backend).run(stream, name=name)
+            torch.cuda.synchronize()
+            run_wall = time.perf_counter() - t0
+        finally:
+            audit.close()
+        launched = {"zorder": zorder.zorder_keys64.launches
+                    + zorder.zorder_keys.launches,
+                    "pruning": pruning.scan_matrix.launches}
+        for k, v in launched.items():
+            counts[k] += v
+        costs = res.query_costs
+        if not (len(costs) == queries and np.isfinite(costs).all()
+                and (costs >= 0).all() and (costs <= 1).all()
+                and len(res.state_seq) == queries):
+            raise AssertionError(f"zorder_full: {name} trace malformed")
+        if launched["zorder"] <= 0 or audit.checked < -(-audit.calls // 10):
+            raise AssertionError(f"zorder_full: {name} made "
+                                 f"{launched['zorder']} zorder launches, "
+                                 f"{audit.checked} audited")
+        results[name] = res
+        emit("zorder_full", method=name, total_cost=res.total_cost,
+             query_cost=res.total_query_cost,
+             reorg_cost=res.total_reorg_cost, moves=res.num_reorgs,
+             setup_seconds=setup, decide_seconds=res.decide_seconds,
+             reorg_seconds=res.reorg_seconds,
+             serve_seconds=res.serve_seconds, run_wall_seconds=run_wall,
+             zorder_launches=launched["zorder"],
+             pruning_launches=launched["pruning"],
+             zorder_audited=audit.checked,
+             zorder_rows_audited=audit.rows_checked,
+             zorder_builds=gen.calls, zorder_build_seconds=gen.seconds,
+             peak_bytes=torch.cuda.max_memory_allocated(device),
+             info={k: v for k, v in res.info.items()
+                   if isinstance(v, (int, float))})
+        if name == "Static":
+            layout = backend.serving_layout
+            meta = layout.true_meta
+            q_lo, q_hi = core.stack_queries(stream.queries)
+            scanned = ref.scan_matrix(torch.as_tensor(q_lo),
+                                      torch.as_tensor(q_hi),
+                                      meta.mins.cpu(), meta.maxs.cpu())
+            want = (core.layouts.scanned_dot(scanned.numpy(),
+                                             meta.rows_host)
+                    / max(meta.total_rows, 1))
+            if not np.array_equal(want, costs):
+                raise AssertionError("zorder_full: Static serve costs differ "
+                                     "from the host recomputation")
+            route = layout.route
+        if name == "Offline Optimal":
+            switches = sum(1 for a, b in zip(stream.segments,
+                                             stream.segments[1:])
+                           if a[2] != b[2])
+            if res.num_reorgs != switches:
+                raise AssertionError(f"zorder_full: Offline Optimal moved "
+                                     f"{res.num_reorgs} times for "
+                                     f"{switches} template changes")
+    emit("zorder_full", stages=zorder_stages(device, data, stream))
+    # The full-table route of Static's layout, timed alone.
+    import ctypes
+    lib = zorder._lib()
+    n, m = len(data), len(route.zcols)
+    out = torch.empty(n, dtype=torch.int64, device=device)
+    host_cols = (ctypes.c_int64 * m)(*route.zcols.tolist())
+    cuda_stream = torch.cuda.current_stream(device).cuda_stream
+
+    def raw():
+        lib.zorder_keys64(data.data_ptr(), data.stride(0),
+                          ctypes.addressof(host_cols),
+                          route.col_lo.data_ptr(), route.col_hi.data_ptr(),
+                          out.data_ptr(), n, m, cuda_stream)
+    emit("zorder_full", kernel="zorder", shape=f"full-table route, {n} x "
+         f"{data.shape[1]}, zcols {route.zcols.tolist()}",
+         ms=cuda_time_ms(raw, 20),
+         plain_ms=cuda_time_ms(lambda: zref.zorder_keys64(
+             data, route.zcols, route.col_lo, route.col_hi), 3),
+         **zorder_bound(n, m, 16, 8))
+    oreo, static = results["OREO"], results["Static"]
+    emit("zorder_full", cell="tpch-sf10-zorder",
+         oreo_vs_static_pct=100.0 * (static.total_cost - oreo.total_cost)
+         / static.total_cost,
+         totals={k: r.total_cost for k, r in results.items()},
+         launches=counts, card=card_line())
+    if counts["zorder"] <= 0:
+        raise AssertionError("zorder_full: the main path never launched the "
+                             "zorder kernel")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2133,7 +2546,8 @@ def main(argv=None) -> int:
 
     kernels = {"pruning": phase_kernel(device), **phase_fleet_kernels(device),
                "move_score": phase_move_score_kernel(device),
-               "flash_attention": phase_flash_kernel(device)}
+               "flash_attention": phase_flash_kernel(device),
+               "zorder": phase_zorder_kernel(device)}
     if "parity" in phases:
         phase_parity(device)
     if "fleet_parity" in phases:
@@ -2143,10 +2557,18 @@ def main(argv=None) -> int:
     if "serve_parity" in phases:
         phase_serve_parity(device)
         release(device)
+    if "zorder_parity" in phases:
+        phase_zorder_parity(device)
     runs = {}
-    if "full" in phases:
-        runs["tpch-sf10-oreo"] = {"pruning": phase_full(device,
-                                                        args.queries)}
+    if phases & {"full", "zorder_full"}:
+        data, stream = sf10_inputs(device, args.queries)
+        if "full" in phases:
+            runs["tpch-sf10-oreo"] = {"pruning": phase_full(device, data,
+                                                            stream)}
+            release(device)
+        if "zorder_full" in phases:
+            runs["tpch-sf10-zorder"] = cell_zorder(device, data, stream)
+        del data
         release(device)
     if "fleet_full" in phases:
         runs.update(phase_fleet_full(device))

@@ -3,10 +3,12 @@
 A layout of the reference package is numpy arrays: zone maps
 (``meta.mins``, ``meta.maxs``, ``meta.rows``) and a router — a qd-tree's
 packed node arrays (``cols``, ``thresholds``, ``lefts``, ``rights``,
-``leaf_ids``) or the default router's fields (``k``, ``sort_col``,
-``boundaries``).  These functions rebuild the zone maps and the router in
-this package, on a given device (the card by default), from those arrays
-alone; ``repro_torch.core.layouts.Layout`` joins them into a layout.
+``leaf_ids``), the default router's fields (``k``, ``sort_col``,
+``boundaries``) or a Z-order router's (``zcols``, ``col_lo``, ``col_hi``,
+``boundaries``, ``k``).  These functions rebuild the zone maps and the
+router in this package, on a given device (the card by default), from
+those arrays alone; ``repro_torch.core.layouts.Layout`` joins them into a
+layout.
 
 :func:`transformer_params` carries a transformer's parameter tree across
 the same way: nested dicts of numpy arrays in the reference's layout.
@@ -18,8 +20,9 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import layouts, qdtree
+from repro_torch.core import layouts, qdtree, zorder
 from repro_torch.kernels._backend import resolve_device, to_device
+from repro_torch.kernels.zorder import ref as zref
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 
@@ -54,6 +57,18 @@ def default_router(k: int, sort_col: Optional[int],
         int(k), None if sort_col is None else int(sort_col),
         None if boundaries is None else to_device(boundaries, dev))
 
+
+def zorder_router(zcols: np.ndarray, col_lo: np.ndarray, col_hi: np.ndarray,
+                  boundaries: np.ndarray, k: int,
+                  device: Device = None) -> zorder._ZOrderRouter:
+    """A Z-order router from its column indices, float64 bounds and uint64
+    key boundaries (held on the device as int64 with bit 63 flipped)."""
+    dev = resolve_device(device)
+    keys = np.ascontiguousarray(boundaries, dtype=np.uint64).view(np.int64)
+    return zorder._ZOrderRouter(
+        np.asarray(zcols, dtype=np.int64), to_device(col_lo, dev),
+        to_device(col_hi, dev), zref.flip(torch.as_tensor(keys, device=dev)),
+        int(k))
 
 
 def _weight(a, device: torch.device, dtype) -> torch.Tensor:

@@ -23,7 +23,7 @@ import numpy as np
 
 import torch
 
-from . import layouts, qdtree, sampling, workload as wl
+from . import layouts, qdtree, sampling, workload as wl, zorder
 
 # generate_layout(layout_id, data, window_queries, k) -> Layout
 GeneratorFn = Callable[[int, torch.Tensor, Sequence[wl.Query], int],
@@ -39,18 +39,16 @@ class LayoutGenerator:
     """
 
     def __init__(self, technique: str, seed: int = 0):
-        if technique == "zorder":
-            raise NotImplementedError(
-                "the z-order generator is not ported yet (ROADMAP.md, "
-                "queue 1, 'Left out of slice 1')")
-        if technique != "qdtree":
+        if technique not in ("qdtree", "zorder"):
             raise ValueError(f"unknown technique: {technique}")
         self.technique = technique
         self.seed = seed
 
     def __call__(self, layout_id, data, queries, k):
-        return qdtree.build_qdtree_layout(layout_id, data, queries, k,
-                                          seed=self.seed + layout_id)
+        if self.technique == "qdtree":
+            return qdtree.build_qdtree_layout(layout_id, data, queries, k,
+                                              seed=self.seed + layout_id)
+        return zorder.build_zorder_layout(layout_id, data, queries, k)
 
 
 def make_generator(technique: str, seed: int = 0) -> GeneratorFn:

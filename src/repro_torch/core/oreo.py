@@ -1,18 +1,23 @@
-"""OREO run configuration and result traces.
+"""OREO run configuration, result traces, and the deprecated batch runner.
 
 The online loop of Figure 1 — including the paper's Δ-delay semantics for
 background reorganization (§VI-D5) — lives in :mod:`repro_torch.engine`
 (:class:`~repro_torch.engine.LayoutEngine` +
-:class:`~repro_torch.engine.OreoPolicy`).
+:class:`~repro_torch.engine.OreoPolicy`).  This module keeps
+:class:`OreoConfig` and :class:`RunResult`, plus :class:`OreoRunner` as a
+deprecated batch alias over the engine.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+import warnings
+from typing import List, Optional
 
 import numpy as np
+import torch
 
 from . import layout_manager as lm
+from . import layouts, mts, workload as wl
 
 
 @dataclasses.dataclass
@@ -82,3 +87,46 @@ class OreoConfig:
     stay_on_phase_start: bool = True
     manager: lm.LayoutManagerConfig = dataclasses.field(
         default_factory=lm.LayoutManagerConfig)
+
+
+class OreoRunner:
+    """Deprecated batch alias for the stepwise engine.
+
+    The online loop lives in :mod:`repro_torch.engine`; this shim composes
+    ``LayoutEngine(OreoPolicy(...), InMemoryBackend(data))`` and gives the
+    engine's trace.  Prefer::
+
+        from repro_torch.engine import InMemoryBackend, LayoutEngine, OreoPolicy
+
+        policy = OreoPolicy(data, initial_layout, generator, config)
+        engine = LayoutEngine(policy, InMemoryBackend(data),
+                              delta=config.delta)
+        result = engine.run(stream)
+    """
+
+    def __init__(self, data: torch.Tensor, initial_layout: layouts.Layout,
+                 generator: lm.GeneratorFn,
+                 config: Optional[OreoConfig] = None):
+        warnings.warn(
+            "OreoRunner is deprecated; use repro_torch.engine.LayoutEngine "
+            "with OreoPolicy + a StorageBackend instead.",
+            DeprecationWarning, stacklevel=2)
+        from repro_torch import engine as _engine   # engine builds on core
+        self.config = config or OreoConfig()
+        self.data = data
+        self.policy = _engine.OreoPolicy(data, initial_layout, generator,
+                                         self.config)
+        self.backend = _engine.InMemoryBackend(data)
+        self.engine = _engine.LayoutEngine(self.policy, self.backend,
+                                           delta=self.config.delta)
+
+    @property
+    def manager(self) -> lm.LayoutManager:
+        return self.policy.manager
+
+    @property
+    def dumts(self) -> mts.DynamicUMTS:
+        return self.policy.dumts
+
+    def run(self, stream: wl.WorkloadStream, name: str = "OREO") -> RunResult:
+        return self.engine.run(stream, name=name)

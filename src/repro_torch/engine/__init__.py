@@ -33,8 +33,9 @@ from repro_torch.engine.fleet import (FleetEngine, FleetResult,
                                       FleetStepResult)
 from repro_torch.engine.fleet_matrix import FleetMatrix
 from repro_torch.engine.policies import (BatchablePolicy, Decision,
-                                         GreedyPolicy, OreoPolicy, Policy,
-                                         RegretPolicy, StaticPolicy,
+                                         GreedyPolicy, MTSOptimalPolicy,
+                                         OfflineOptimalPolicy, OreoPolicy,
+                                         Policy, RegretPolicy, StaticPolicy,
                                          ThresholdSwitchPolicy)
 from repro_torch.engine.reorg import (MicroMove, MigrationPlan,
                                       MigrationRecord, ReorgExecutor,
@@ -50,7 +51,8 @@ __all__ = [
     "BatchablePolicy", "Decision", "DiskBackend", "Event", "FleetEngine",
     "FleetMatrix", "FleetResult", "FleetStepResult", "GreedyPolicy",
     "InMemoryBackend", "IngestEvent", "KConcurrentScheduler", "LayoutEngine",
-    "MicroMove", "MigrationPlan", "MigrationRecord", "OreoPolicy", "Policy",
+    "MTSOptimalPolicy", "MicroMove", "MigrationPlan", "MigrationRecord",
+    "OfflineOptimalPolicy", "OreoPolicy", "Policy",
     "QueryEvent", "RegretPolicy", "ReorgExecutor", "ReorgScheduler",
     "SchedulerSpec", "StateMatrix", "StaticPolicy", "StepResult",
     "StorageBackend", "ThresholdSwitchPolicy", "TokenBucketScheduler",

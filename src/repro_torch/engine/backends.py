@@ -379,8 +379,8 @@ class DiskBackend(_RegistryMixin):
                  background: bool = True, durable: bool = False):
         if durable:
             raise NotImplementedError(
-                "DiskBackend(durable=True) is not ported yet (slice 4, "
-                "ROADMAP.md queue 1 item 7)")
+                "DiskBackend(durable=True) is not ported yet (ROADMAP.md "
+                "queue 1 item 7)")
         if not isinstance(data, torch.Tensor) or data.dtype != torch.float64:
             raise TypeError("DiskBackend needs the table as a float64 "
                             "tensor on its device (see repro_torch.data)")
@@ -519,8 +519,8 @@ class DiskBackend(_RegistryMixin):
     def enable_ingest(self):
         """Streaming ingest belongs to a later slice of the port."""
         raise NotImplementedError(
-            "DiskBackend ingest is not ported yet (slice 4, ROADMAP.md "
-            "queue 1 item 7)")
+            "DiskBackend ingest is not ported yet (ROADMAP.md queue 1 "
+            "item 7)")
 
     # -- incremental migration (see repro_torch.engine.reorg) -----------
     @property

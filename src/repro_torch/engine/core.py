@@ -62,8 +62,8 @@ class LayoutEngine:
                  ingest: Optional[object] = None):
         if ingest is not None:
             raise NotImplementedError(
-                "LayoutEngine(ingest) is not ported yet (slice 4, "
-                "ROADMAP.md queue 1 item 7)")
+                "LayoutEngine(ingest) is not ported yet (ROADMAP.md "
+                "queue 1 item 7)")
         self.policy = policy
         self.backend = backend
         self.delta = delta

@@ -48,7 +48,7 @@ from .core import LayoutEngine, StepResult
 from .fleet_matrix import FleetMatrix
 from .scheduler import ReorgScheduler, SchedulerSpec, UnlimitedScheduler
 
-_INGEST = ("ingest events are not ported yet (slice 4, ROADMAP.md queue 1 "
+_INGEST = ("ingest events are not ported yet (ROADMAP.md queue 1 "
            "item 7)")
 
 

@@ -3,8 +3,8 @@
 A :class:`Policy` decides, one query at a time, which layout state the system
 should be in and when a reorganization is charged; the engine turns those
 decisions into physical actions against a :class:`StorageBackend`.  OREO and
-the paper's online methods of comparison (§VI-A3) are policies over the
-*same* shared loop.  Decisions are host logic, carried over line for line
+every method of comparison from the paper (§VI-A3, §VI-C) are policies over
+the *same* shared loop.  Decisions are host logic, carried over line for line
 from the reference; every cost they read comes from the device scan.
 """
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.core import baselines as _baselines
 from repro_torch.core import layout_manager as lm
 from repro_torch.core import layouts, mts, oreo, predictors, sampling
 from repro_torch.core import workload as wl
@@ -381,6 +382,79 @@ class StaticPolicy:
 
     def decide(self, index: int, query: wl.Query, backend) -> Decision:
         return Decision(state=self.layout.layout_id)
+
+    def info(self) -> dict:
+        return {}
+
+
+class MTSOptimalPolicy:
+    """Fixed precomputed state space (best layout per template) + OREO's
+    D-UMTS switching; no dynamic state management (§VI-C)."""
+
+    name = "MTS Optimal"
+
+    def __init__(self, data: torch.Tensor, stream: wl.WorkloadStream,
+                 generator: lm.GeneratorFn, alpha: float,
+                 target_partitions: int = 32, gamma: float = 1.0,
+                 seed: int = 0):
+        self.alpha = alpha
+        per_template = _baselines.per_template_layouts(
+            data, stream, generator, target_partitions)
+        self.store = {lay.layout_id: lay for lay in per_template.values()}
+        self.dumts = mts.DynamicUMTS(
+            alpha=alpha, initial_states=sorted(self.store), seed=seed,
+            transition_fn=predictors.gamma_biased_transition(gamma))
+
+    def bind(self, backend) -> int:
+        for lay in self.store.values():
+            backend.register(lay)
+        return self.dumts.current_state
+
+    def decide(self, index: int, query: wl.Query, backend) -> Decision:
+        costs = backend.estimate_costs(sorted(self.store), query)
+        prev_moves = self.dumts.num_moves
+        state = self.dumts.observe(costs)
+        return Decision(state=state, reorg=self.dumts.num_moves > prev_moves)
+
+    def info(self) -> dict:
+        return {
+            "phases": self.dumts.phase,
+            "max_state_space": self.dumts.max_state_space,
+            "competitive_bound": self.dumts.competitive_bound(),
+        }
+
+
+class OfflineOptimalPolicy:
+    """Sees the whole stream: per-template layout, switching exactly at
+    template boundaries — the lower bound for online methods (§VI-C)."""
+
+    name = "Offline Optimal"
+
+    def __init__(self, data: torch.Tensor, stream: wl.WorkloadStream,
+                 generator: lm.GeneratorFn, alpha: float,
+                 target_partitions: int = 32):
+        self.alpha = alpha
+        per_template = _baselines.per_template_layouts(
+            data, stream, generator, target_partitions)
+        self.store = {lay.layout_id: lay for lay in per_template.values()}
+        self._state_per_query = np.zeros(len(stream), dtype=np.int64)
+        self._reorg_at: set[int] = set()
+        prev_tid = None
+        for start, end, tid in stream.segments:
+            self._state_per_query[start:end] = per_template[tid].layout_id
+            if prev_tid is not None and tid != prev_tid:
+                self._reorg_at.add(start)
+            prev_tid = tid
+
+    def bind(self, backend) -> int:
+        for lay in self.store.values():
+            backend.register(lay)
+        return int(self._state_per_query[0]) if len(self._state_per_query) \
+            else min(self.store)
+
+    def decide(self, index: int, query: wl.Query, backend) -> Decision:
+        return Decision(state=int(self._state_per_query[index]),
+                        reorg=index in self._reorg_at)
 
     def info(self) -> dict:
         return {}

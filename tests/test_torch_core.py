@@ -283,8 +283,12 @@ def test_layout_manager_admits_and_evicts_the_same_states(bench):
     cv_r, cv_g = ref._cost_vectors(ref.store), got._cost_vectors(got.store)
     assert all(np.array_equal(cv_g[i], cv_r[i]) for i in cv_r)
     assert got.prune_redundant(0) == ref.prune_redundant(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.make_generator("zorder")
+    zgen = tlm.make_generator("zorder")
+    assert zgen.technique == "zorder"
+    z_got = zgen(1, t(data), stream.queries[:200], 8)
+    z_ref = rlm.make_generator("zorder")(1, data, stream.queries[:200], 8)
+    assert z_got.name == z_ref.name and z_got.info == z_ref.info
+    same_meta(z_got.meta, z_ref.meta)
     with pytest.raises(ValueError):
         tlm.make_generator("hilbert")
 

@@ -566,3 +566,129 @@ def _tree_of(params):
                        "ln2": stack(lambda b: b.ln2)},
             "final_norm": params.final_norm.float().cpu().numpy(),
             "head": params.head.float().cpu().numpy()}
+
+
+# ---------------------------------------------------------------------------
+# Z-order keys and the evaluation baselines
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,m,bits,narrow", [
+    (1_000_000, 3, 10, False),      # the bench shape
+    (4097, 3, 8, True), (33, 4, 8, False), (1025, 4, 8, True),
+    (500, 5, 6, True), (64, 1, 16, False), (1024, 2, 16, True),
+    (77, 32, 1, False), (1, 3, 10, False)])
+def test_zorder_kernel_matches_plain(cuda_device, n, m, bits, narrow):
+    from repro_torch.kernels.zorder import ref as zref, zorder
+    rng = np.random.default_rng(n + m + bits)
+    vals = rng.uniform(-5, 5, (n, m)).astype(np.float32)
+    lo, hi = vals.min(0), vals.max(0)
+    if narrow:                      # values past both ends, one flat column
+        lo, hi = lo + 1, hi - 1
+        hi[0] = lo[0]
+    args = [torch.as_tensor(a) for a in (vals, lo, hi)]
+    before = zorder.zorder_keys.launches
+    got = zorder.zorder_keys(*[a.to(cuda_device) for a in args], bits)
+    torch.cuda.synchronize()
+    assert zorder.zorder_keys.launches == before + 1
+    assert torch.equal(got.cpu(), zref.zorder_keys(*args, bits))
+
+
+@pytest.mark.parametrize("n,c,zcols,row_step", [
+    (1_199_721, 32, (0, 4, 9), 1),  # the tpch-sf10-zorder sample
+    (5000, 8, (3,), 1), (5000, 8, (1, 6), 1), (5000, 8, (0, 2, 7), 3),
+    (4099, 8, (0, 3, 5, 6), 1), (4099, 8, (1, 2, 4, 5, 7), 2),
+    (3000, 40, tuple(range(0, 40, 4)), 1), (1, 4, (2, 0), 1)])
+def test_zorder64_kernel_matches_plain(cuda_device, n, c, zcols, row_step):
+    from repro_torch.kernels.zorder import ref as zref, zorder
+    rng = np.random.default_rng(n + c)
+    table = rng.uniform(-50, 150, (n * row_step, c))
+    cols = list(zcols)
+    sub = table[: max(1, n // 3), cols]
+    lo, hi = sub.min(0), sub.max(0)     # the rest of the rows lie outside
+    if len(cols) > 1:
+        hi[1] = lo[1]
+    view = torch.as_tensor(table, device=cuda_device)[::row_step]
+    before = zorder.zorder_keys64.launches
+    got = zorder.zorder_keys64(view, cols,
+                               torch.as_tensor(lo, device=cuda_device),
+                               torch.as_tensor(hi, device=cuda_device))
+    torch.cuda.synchronize()
+    assert zorder.zorder_keys64.launches == before + 1
+    want = zref.zorder_keys64(torch.as_tensor(table)[::row_step], cols,
+                              torch.as_tensor(lo), torch.as_tensor(hi))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_zorder_refuses_cuda_operands_it_cannot_take(cuda_device):
+    from repro_torch.kernels.zorder import zorder
+    v = torch.zeros((8, 6), device=cuda_device)
+    b3 = torch.zeros(3, device=cuda_device)
+    with pytest.raises(ValueError):                    # strided values
+        zorder.zorder_keys(v[:, ::2], b3, b3, 10)
+    with pytest.raises(ValueError):                    # mixed devices
+        zorder.zorder_keys(v[:, :3].contiguous(), b3.cpu(), b3, 10)
+    t64 = torch.zeros((8, 6), dtype=torch.float64, device=cuda_device)
+    b2 = torch.zeros(2, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError):                    # column stride 2
+        zorder.zorder_keys64(t64[:, ::2], [0, 1], b2, b2)
+    with pytest.raises(ValueError, match="columns"):
+        zorder.zorder_keys64(torch.zeros((2, 40), dtype=torch.float64,
+                                         device=cuda_device), range(33),
+                             torch.zeros(33, dtype=torch.float64,
+                                         device=cuda_device),
+                             torch.zeros(33, dtype=torch.float64,
+                                         device=cuda_device))
+
+
+def test_zorder_methods_on_the_card_equal_the_cpu(cuda_device):
+    """The six methods of comparison under the Z-order generator: the card
+    runs the kernel (every build and materialization) and gives the CPU's
+    traces; the layouts equal the CPU's."""
+    from repro_torch.kernels.zorder import zorder
+    rng = np.random.default_rng(0)
+    table = rng.uniform(0, 100, size=(20_000, 8))
+    templates = core.make_templates(4, 8, rng)
+    stream = core.generate_workload(templates, table.min(0), table.max(0),
+                                    total_queries=900, seed=1,
+                                    segment_length=(200, 300))
+    gen = core.make_generator("zorder")
+    card = torch.as_tensor(table, device=cuda_device)
+    cpu = torch.as_tensor(table)
+    a, b = gen(3, card, stream.queries[:200], 16), gen(
+        3, cpu, stream.queries[:200], 16)
+    assert a.name == b.name and a.info == b.info
+    assert torch.equal(a.route.boundaries.cpu(), b.route.boundaries)
+    assert torch.equal(a.meta.mins.cpu(), b.meta.mins)
+    assert torch.equal(a.route(card).cpu(), b.route(cpu))
+
+    def policies(data):
+        init = core.build_default_layout
+        mgr = core.LayoutManagerConfig(target_partitions=16)
+        return {
+            "Static": engine.StaticPolicy(data, stream, gen, 40.0, 16),
+            "Greedy": engine.GreedyPolicy(data, init(0, data, 16), gen,
+                                          40.0, mgr_cfg=mgr),
+            "Regret": engine.RegretPolicy(data, init(0, data, 16), gen,
+                                          40.0, mgr_cfg=mgr),
+            "OREO": engine.OreoPolicy(data, init(0, data, 16), gen,
+                                      core.OreoConfig(alpha=40.0,
+                                                      manager=mgr)),
+            "MTS Optimal": engine.MTSOptimalPolicy(data, stream, gen, 40.0,
+                                                   16),
+            "Offline Optimal": engine.OfflineOptimalPolicy(data, stream, gen,
+                                                           40.0, 16)}
+    traces = {}
+    for data in (card, cpu):
+        before = zorder.zorder_keys64.launches
+        for name, policy in policies(data).items():
+            res = engine.LayoutEngine(policy, engine.InMemoryBackend(data)
+                                      ).run(stream)
+            traces[data.device.type, name] = res
+        if data.is_cuda:
+            assert zorder.zorder_keys64.launches > before
+    for name in ("Static", "Greedy", "Regret", "OREO", "MTS Optimal",
+                 "Offline Optimal"):
+        x, y = traces["cuda", name], traces["cpu", name]
+        assert np.array_equal(x.query_costs, y.query_costs), name
+        assert x.reorg_indices == y.reorg_indices
+        assert np.array_equal(x.state_seq, y.state_seq)

@@ -356,10 +356,10 @@ def test_later_slices_raise_not_implemented(tenant_data):
     ingest = te.IngestEvent("a", object())
     for drive in ("run", "run_batched"):
         f = te.FleetEngine({"a": flipflop_engine("port", d)})
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             getattr(f, drive)([ingest])
         assert f.result().ticks == 0
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         f.step("a", object())
     with pytest.raises(ValueError, match="compute backend"):
         f.run_batched([], compute="pallas_fused")
