@@ -17,16 +17,21 @@ Phases, each printing JSON lines:
    move_score, flash_attention, zorder) against its plain PyTorch version
    on the card, at the shapes the main paths give it plus ragged and edge
    shapes, with CUDA-event times and the least time the card could take
-   (bound).  Scans, ``freq``, move scores and Z-order keys (both lanes:
+   (bound); for pruning, fleet_scan, decision_fused and move_score also
+   the profiler's device time per launch (``device_ms``), which tells the
+   kernel body from the host's launch rate.  Scans, ``freq``, move scores
+   and Z-order keys (both lanes:
    the TPU kernel's float32 one at its bench shape 1,000,000 x 3, and the
    layout generator's float64 one on the 1,199,721-row sample, contiguous
    and read in place from 32 columns) must be exact, ``cost`` within rel
    1e-12; flash attention within atol = rtol = 2e-2 in bfloat16 and 1e-5
    in float32 (qwen3-1.7b's prefill, ragged, smoke, non-causal with
-   ``kv_valid_len``, ``prefix_len`` 96, ``q_offset`` 64, ``kv_valid_len``
-   0, head dims 256 and 192), also timing PyTorch's
-   ``scaled_dot_product_attention`` on the same tensors as ``library_ms``
-   (the port never calls it).
+   ``kv_valid_len``, ``prefix_len`` 96 and 200, ``q_offset`` 64,
+   ``kv_valid_len`` 0, head dims 256 and 192, 32 query heads over 4),
+   both of its routes in bfloat16 (tensor cores, timed as ``ms``, and the
+   scalar one as ``earlier_design_ms``) and the scalar one in float32,
+   also timing PyTorch's ``scaled_dot_product_attention`` on the same
+   tensors as ``library_ms`` (the port never calls it).
 3. ``parity``: the single-table loop at 20,000 rows x 8 columns and 1,500
    queries under OREO, Static, Greedy and Regret, on the card and on the
    CPU; the traces must be bitwise equal.
@@ -66,8 +71,9 @@ Phases, each printing JSON lines:
    width in bf16, weights drawn on the card from a seeded generator, the
    slot loop with 4 slots serving 8 requests of 2048-token prompts, 64
    new tokens each, ``max_len`` 2176; every prefill attention launches
-   the flash kernel (28 per prefill); then one prefill and four decode
-   steps under ``torch.profiler``.
+   the flash kernel's tensor-core route (28 per prefill); then one
+   prefill (with the flash kernel's share of its device time) and four
+   decode steps under ``torch.profiler``.
 11. ``zorder_parity``: the six methods of Figs. 3 and 4 (Static, Greedy,
    Regret, OREO, MTS Optimal, Offline Optimal) under the Z-order generator
    on the tpch-, tpcds- and telemetry-like tables at 20,000 rows and 1,500
@@ -145,6 +151,31 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str):
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``kernel`` over ``reps`` calls of ``fn``, by torch.profiler.  Beside
+    cuda_time_ms (back-to-back calls between CUDA events) it tells the
+    kernel body's time from the host's launch rate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = count = 0
+    for e in prof.key_averages():
+        if kernel in e.key and str(getattr(e, "device_type", "")
+                                   ).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            us += t if t is not None else getattr(e, "self_cuda_time_total",
+                                                  0)
+            count += e.count
+    return us / 1e3 / count if count else None
 
 
 def scan_bound(q: int, p: int, c: int) -> dict:
@@ -231,6 +262,8 @@ def phase_kernel(device) -> dict:
         row = {"shape": name, "q": q, "p": p, "c": c,
                "row_stride": stride, "equal": True, "max_abs_err": err,
                "ms": cuda_time_ms(raw, 200),
+               **({} if results else {"device_ms": device_ms(
+                   raw, 200, "scan_matrix_kernel")}),
                "wrapper_ms": cuda_time_ms(
                    lambda: pruning.scan_matrix(lo, hi, mins, maxs), 200),
                "plain_ms": cuda_time_ms(
@@ -243,7 +276,8 @@ def phase_kernel(device) -> dict:
             "source": "src/repro_torch/csrc/pruning.cu",
             "replaces": "src/repro/kernels/pruning/pruning.py:86",
             "max_abs_err": max(r["max_abs_err"] for r in results),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None}
 
@@ -652,6 +686,7 @@ def time_fleet_kernels(device, lo, hi, vmin, vmax, reps: int = 200) -> dict:
     return {
         "decision_fused": {
             "ms": cuda_time_ms(raw_fused, reps),
+            "device_ms": device_ms(raw_fused, reps, "decision_fused_kernel"),
             "wrapper_ms": cuda_time_ms(lambda: decision_fused.fused_decision(
                 lo, hi, vmin, vmax), reps),
             "plain_ms": cuda_time_ms(lambda: dref.fused_decision(
@@ -659,6 +694,7 @@ def time_fleet_kernels(device, lo, hi, vmin, vmax, reps: int = 200) -> dict:
             **plane_bound(b, t, s * p, c)},
         "fleet_scan": {
             "ms": cuda_time_ms(raw_fleet, reps),
+            "device_ms": device_ms(raw_fleet, reps, "fleet_scan_kernel"),
             "wrapper_ms": cuda_time_ms(lambda: fleet_scan.scan_fleet(
                 lo0, hi0, fmin, fmax), reps),
             "plain_ms": cuda_time_ms(lambda: fref.scan_fleet(
@@ -735,6 +771,7 @@ def phase_fleet_kernels(device) -> dict:
                      "source": f"src/repro_torch/csrc/{kernel}.cu",
                      "replaces": line, "max_abs_err": errs[kernel],
                      "ms": main[kernel]["ms"],
+                     "device_ms": main[kernel]["device_ms"],
                      "plain_ms": main[kernel]["plain_ms"],
                      "bound_ms": main[kernel]["bound_ms"],
                      "bound_by": main[kernel]["bound_by"],
@@ -968,6 +1005,8 @@ def phase_move_score_kernel(device) -> dict:
                                out.data_ptr(), q, s, p, c, stream)
             row.update({
                 "ms": cuda_time_ms(raw, 200),
+                **({} if results else {"device_ms": device_ms(
+                    raw, 200, "move_score_kernel")}),
                 "wrapper_ms": cuda_time_ms(lambda: move_score.move_scores(
                     dlo, dhi, vmin, vmax), 200),
                 "plain_ms": cuda_time_ms(lambda: mref.move_scores(
@@ -1012,7 +1051,8 @@ def phase_move_score_kernel(device) -> dict:
             "source": "src/repro_torch/csrc/move_score.cu",
             "replaces": "src/repro/kernels/move_score/move_score.py:91",
             "max_abs_err": max(r["max_abs_err"] for r in results),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None}
 
@@ -1675,7 +1715,12 @@ FLASH_SHAPES = [  # (name, B, T, S, Hq, Hkv, dh, kwargs, head_pad)
     ("kv_valid_len 0", 2, 128, 128, 16, 8, 128, {"kv_valid_len": 0}, 0),
     ("dh 256 MQA", 1, 200, 200, 8, 1, 256, {}, 0),
     ("dh 192 head-strided views", 1, 130, 130, 6, 2, 192, {}, 2),
+    ("prefix_len 200", 1, 512, 512, 16, 8, 128, {"prefix_len": 200}, 0),
+    ("g 8", 1, 256, 256, 32, 4, 128, {}, 0),
 ]
+#: The routes each dtype's cases are held and timed on; the first is the
+#: one the wrapper chooses for the main path's operands.
+FLASH_ROUTES = {"bfloat16": ("tensor_core", "scalar"), "float32": ("scalar",)}
 
 
 def flash_bound(b, t, s, hq, hkv, dh, kw, dtype, device) -> dict:
@@ -1736,10 +1781,13 @@ def flash_operands(rng, b, t, s, hq, hkv, dh, dtype, device, head_pad):
 
 def phase_flash_kernel(device) -> dict:
     """flash_attention against its plain version on the card over
-    FLASH_SHAPES in bfloat16 and float32 (atol = rtol = 2e-2 and 1e-5),
-    with CUDA-event times of the kernel, the plain version and PyTorch's
-    scaled_dot_product_attention over 50 launches each; returns the
-    kernel's summary at qwen3-1.7b's prefill shape in bfloat16."""
+    FLASH_SHAPES, each route of FLASH_ROUTES (both in bfloat16, atol = rtol
+    = 2e-2; the scalar one in float32, 1e-5), with CUDA-event times of each
+    route, the plain version and PyTorch's scaled_dot_product_attention
+    over 50 launches each; returns the kernel's summary at qwen3-1.7b's
+    prefill shape in bfloat16: the tensor-core route as ``ms``, the scalar
+    route (the earlier design) on the same tensors as
+    ``earlier_design_ms``."""
     import numpy as np
     import torch
     from repro_torch.kernels import _backend
@@ -1748,62 +1796,78 @@ def phase_flash_kernel(device) -> dict:
     rng = np.random.default_rng(3)
     lib = fa._lib()
     stream = _backend.stream_handle(device)
-    results = []
+    results = []                # the chosen route's rows
+    max_err = 0.0               # over every route
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         tol = FLASH_TOL[dname]
         for name, b, t, s, hq, hkv, dh, kw, pad in FLASH_SHAPES:
             q, k, v = flash_operands(rng, b, t, s, hq, hkv, dh, dtype,
                                      device, pad)
-            got = fa.flash_attention(q, k, v, **kw)
             want = ref.flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            row = {"shape": name, "dtype": dname, "b": b, "t": t, "s": s,
-                   "hq": hq, "hkv": hkv, "dh": dh, **kw,
-                   "q_strides": list(q.stride()),
-                   "max_abs_err": float(err.max()) if err.numel() else 0.0,
-                   "tolerance": tol,
-                   "finite": bool(torch.isfinite(got).all())}
-            ok = bool((err <= tol + tol * want.float().abs()).all())
-            if kw.get("kv_valid_len") == 0:
-                ok = ok and not bool(got.float().abs().max())
-            if not (ok and row["finite"]):
-                emit("kernel", kernel="flash_attention", **row)
-                raise AssertionError(f"flash_attention disagrees with its "
-                                     f"plain version at {name} {dname}")
             out = torch.empty_like(q, memory_format=torch.contiguous_format)
-            strides = np.array([*q.stride()[:3], *k.stride()[:3],
-                                *v.stride()[:3], *out.stride()[:3]],
+            strides = np.array([*fa._strides(q), *fa._strides(k),
+                                *fa._strides(v), *fa._strides(out)],
                                dtype=np.int64)
             kv_valid = s if kw.get("kv_valid_len") is None else kw[
                 "kv_valid_len"]
             scale = float(np.float32(dh ** -0.5))
             dcode = fa._DTYPES[dtype]
+            ms, rows = {}, []
+            for route in FLASH_ROUTES[dname]:
+                got = fa.flash_attention(q, k, v, route=route, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                row = {"shape": name, "dtype": dname, "route": route,
+                       "b": b, "t": t, "s": s, "hq": hq, "hkv": hkv,
+                       "dh": dh, **kw, "q_strides": list(q.stride()),
+                       "max_abs_err": (float(err.max()) if err.numel()
+                                       else 0.0),
+                       "tolerance": tol,
+                       "finite": bool(torch.isfinite(got).all())}
+                ok = bool((err <= tol + tol * want.float().abs()).all())
+                if kw.get("kv_valid_len") == 0:
+                    ok = ok and not bool(got.float().abs().max())
+                if not (ok and row["finite"]):
+                    emit("kernel", kernel="flash_attention", **row)
+                    raise AssertionError(
+                        f"flash_attention's {route} route disagrees with "
+                        f"its plain version at {name} {dname}")
+                max_err = max(max_err, row["max_abs_err"])
 
-            def raw():
-                lib.flash_attention(
-                    dcode, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    out.data_ptr(), strides.ctypes.data, b, t, s, hq, hkv,
-                    dh, int(kw.get("causal", True)), kw.get("prefix_len", 0),
-                    kv_valid, kw.get("q_offset", 0), scale, stream)
-            row.update({
-                "ms": cuda_time_ms(raw, 50),
+                def raw(code=fa.ROUTES[route]):
+                    rc = lib.flash_attention(
+                        code, dcode, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), out.data_ptr(), strides.ctypes.data,
+                        b, t, s, hq, hkv, dh, int(kw.get("causal", True)),
+                        kw.get("prefix_len", 0), kv_valid,
+                        kw.get("q_offset", 0), scale, stream)
+                    if rc:
+                        raise RuntimeError(f"flash_attention: CUDA error "
+                                           f"{rc} at launch")
+                ms[route] = row["ms"] = cuda_time_ms(raw, 50)
+                rows.append(row)
+            main = rows[0]
+            main.update({
                 "plain_ms": cuda_time_ms(
                     lambda: ref.flash_attention(q, k, v, **kw), 50),
                 "library_ms": cuda_time_ms(lambda: sdpa(q, k, v, **kw), 50),
                 **flash_bound(b, t, s, hq, hkv, dh, kw, dtype, device)})
-            results.append(row)
-            emit("kernel", kernel="flash_attention", **row)
+            if main["route"] != "scalar":
+                main["earlier_design_ms"] = ms["scalar"]
+            results.append(main)
+            for row in rows:
+                emit("kernel", kernel="flash_attention", **row)
     main = results[0]
     return {"name": "flash_attention.flash_attention", "route": "cuda",
+            "kernel_route": main["route"],
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:99",
-            "max_abs_err": max(r["max_abs_err"] for r in results),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"]}
+            "max_abs_err": max_err,
+            "ms": main["ms"], "earlier_design_ms": main["earlier_design_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
 
 
 def numpy_transformer(cfg, seed: int) -> dict:
@@ -1979,10 +2043,12 @@ class FlashAudit:
         return got
 
 
-def profile_window(fn) -> dict:
+def profile_window(fn, focus: str = "") -> dict:
     """Wall time of ``fn`` (ending in a synchronize) under torch.profiler,
     the device time of its kernels (one stream, so their sum is the busy
-    time), the idle share and the kernels that take the most time."""
+    time), the idle share and the kernels that take the most time; with
+    ``focus``, the device time of the kernels whose name holds it and its
+    share of the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2001,10 +2067,15 @@ def profile_window(fn) -> dict:
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    return {"wall_s": wall, "device_busy_s": busy if rows else None,
-            "idle_share": 1.0 - busy / wall if rows else None,
-            "top_kernels": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
-                            for us, k, n in rows[:8]]}
+    out = {"wall_s": wall, "device_busy_s": busy if rows else None,
+           "idle_share": 1.0 - busy / wall if rows else None,
+           "top_kernels": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
+                           for us, k, n in rows[:8]]}
+    if focus:
+        us = sum(r[0] for r in rows if focus in r[1])
+        out.update({f"{focus}_ms": us / 1e3,
+                    f"{focus}_share": us / 1e6 / busy if rows else None})
+    return out
 
 
 def profile_serve(model, params, prompts, max_len: int, name: str) -> None:
@@ -2020,7 +2091,7 @@ def profile_serve(model, params, prompts, max_len: int, name: str) -> None:
 
     def prefill():
         out["cache"] = prefill_fn(params, {"tokens": tokens})[1]
-    pre = profile_window(prefill)
+    pre = profile_window(prefill, focus="flash_attention")
     cache = out["cache"]
     cache["index"] = max_len - 5
     tok = tokens[:, :1]
@@ -2083,6 +2154,8 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
         return run
     audit = FlashAudit(every=10)
     fa.flash_attention.launches = 0
+    by_route = fa.flash_attention.launches_by_route
+    by_route.update(dict.fromkeys(by_route, 0))
     t0 = time.perf_counter()
     try:
         batcher, counts = serve_slot_loop(
@@ -2093,6 +2166,7 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
         audit.close()
     wall = time.perf_counter() - t0
     launches = fa.flash_attention.launches
+    routes = dict(by_route)
     generated = sum(len(r.generated) for r in batcher.completed)
     in_range = all(0 <= t < cfg.vocab for r in batcher.completed
                    for t in r.generated)
@@ -2110,6 +2184,7 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
          / counts["decode_steps"],
          wall_seconds=wall, requests_completed=len(batcher.completed),
          tokens_generated=generated, flash_launches=launches,
+         flash_launches_by_route=routes,
          flash_launches_per_prefill=launches / counts["prefills"],
          flash_checked=audit.checked, flash_max_abs_err=audit.max_abs_err,
          logits_finite=timing["finite"], tokens_in_vocab=in_range,
@@ -2123,6 +2198,10 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
     if launches != cfg.n_layers * counts["prefills"] or launches <= 0:
         raise AssertionError(f"{name}: {launches} flash launches for "
                              f"{counts['prefills']} prefills")
+    if routes["tensor_core"] != launches:
+        raise AssertionError(f"{name}: {routes['tensor_core']} of "
+                             f"{launches} flash launches took the "
+                             f"tensor-core route")
     if not (timing["finite"] and in_range):
         raise AssertionError(f"{name}: non-finite logits or tokens out of "
                              f"the vocabulary")
@@ -2541,7 +2620,8 @@ def main(argv=None) -> int:
          device=torch.cuda.get_device_name(0),
          build_seconds=_backend.build_seconds,
          build_dir=str(_backend.build_dir().relative_to(ROOT)),
-         ptxas={k: [ln for ln in v.splitlines() if "ptxas" in ln]
+         ptxas={k: [ln.strip() for ln in v.splitlines()
+                    if "ptxas" in ln or "spill" in ln]
                 for k, v in _backend.build_logs.items()})
 
     kernels = {"pruning": phase_kernel(device), **phase_fleet_kernels(device),

@@ -9,7 +9,10 @@ bidirectional ``prefix_len``; rows with no visible key give 0.
 
 :func:`flash_attention` launches the kernel on CUDA tensors and runs the
 plain version (:mod:`.ref`) on CPU tensors; there is no fallback from one
-to the other.
+to the other.  The kernel has two routes, chosen before the launch from
+the operands alone (:func:`_route`): ``tensor_core`` (wgmma and TMA) for
+bfloat16 operands it can take, ``scalar`` for float32 and every other
+bfloat16 input.  A launch error raises; nothing retries the other route.
 """
 from __future__ import annotations
 
@@ -24,8 +27,9 @@ from repro_torch.kernels import _backend
 from . import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-             + [ctypes.c_float, ctypes.c_void_p])
+ROUTES = {"scalar": 0, "tensor_core": 1}
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+             + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -69,10 +73,34 @@ def _check(q, k, v) -> None:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
+def _route(dtype: torch.dtype, dh: int, strides, ptrs) -> str:
+    """The route for operands of ``dtype`` and head dim ``dh`` with the
+    given element strides (batch, token and head of q, k, v and out) and
+    base addresses: ``tensor_core`` takes bfloat16 with ``dh`` a multiple
+    of 16 up to 256, 16-byte aligned bases and strides that are positive
+    multiples of 8 elements (TMA's 16 bytes); everything else is
+    ``scalar``."""
+    ok = (dtype == torch.bfloat16 and dh % 16 == 0 and 16 <= dh <= 256
+          and all(p % 16 == 0 for p in ptrs)
+          and all(st > 0 and st % 8 == 0 for st in strides))
+    return "tensor_core" if ok else "scalar"
+
+
+def _strides(x: torch.Tensor) -> list:
+    """(batch, token, head) element strides of ``x``.  The kernel never
+    steps along a dimension of extent 1, nor reads an empty tensor, so
+    such a stride that TMA would refuse is given as 8."""
+    if x.numel() == 0:
+        return [8, 8, 8]
+    return [st if n > 1 or (st > 0 and st % 8 == 0) else 8
+            for n, st in zip(x.shape[:3], x.stride()[:3])]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, prefix_len: int = 0,
                     kv_valid_len: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0,
+                    route: Optional[str] = None) -> torch.Tensor:
     """q: (B, T, Hq, dh); k, v: (B, S, Hkv, dh) -> (B, T, Hq, dh).
 
     Query ``t`` (at position ``q_offset + t``) attends key ``s`` when
@@ -83,6 +111,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is in the input dtype.  On the card: float32 or bfloat16 operands with
     a unit stride along ``dh``, ``dh`` at most 256; ``kv_valid_len`` is an
     int (a tensor is read back to the host) and is clamped to ``[0, S]``.
+    ``route`` (``tensor_core`` or ``scalar``) overrides :func:`_route`'s
+    choice; a route that cannot take the operands raises and launches
+    nothing.
     """
     _check(q, k, v)
     if kv_valid_len is not None:
@@ -113,19 +144,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, t, hq, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    strides = np.array([*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                        *out.stride()[:3]], dtype=np.int64)
+    strides = np.array([*_strides(q), *_strides(k), *_strides(v),
+                        *_strides(out)], dtype=np.int64)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if route is None:
+        route = _route(q.dtype, dh, strides.tolist(), ptrs)
+    if route not in ROUTES:
+        raise ValueError(f"flash_attention: route {route!r} is not one of "
+                         f"{sorted(ROUTES)}")
     with torch.cuda.device(q.device):
         err = lib.flash_attention(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), strides.ctypes.data, b, t, s, hq, hkv, dh,
+            ROUTES[route], _DTYPES[q.dtype], *ptrs,
+            strides.ctypes.data, b, t, s, hq, hkv, dh,
             int(bool(causal)), int(prefix_len), kv_valid, int(q_offset),
             float(np.float32(dh ** -0.5)),
             _backend.stream_handle(q.device))
-    _backend.check_launch("flash_attention", err)
+    _backend.check_launch(f"flash_attention ({route} route)", err)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
-#: Kernel launches since the last reset (CPU calls do not count).
+#: Kernel launches since the last reset, in all and by route (CPU calls do
+#: not count).
 flash_attention.launches = 0
+flash_attention.launches_by_route = {route: 0 for route in ROUTES}

@@ -6,7 +6,9 @@ GQA groups, ragged lengths, ``q_offset`` and ``kv_valid_len`` (0
 included), at the default blocking and at 32 x 32 blocks; against
 ``repro``'s exact ``ref.attention`` and the Pallas kernel in interpret
 mode while the prefix stays inside one block; and, past one block, against
-the exact softmax where the Pallas kernel's block skip is wrong.
+the exact softmax where the Pallas kernel's block skip is wrong.  The
+wrapper's choice between the kernel's two routes is checked from the
+operands alone (``_route``), as the wrapper makes it before a launch.
 
 Tolerances: float32 ``atol 1e-5`` (sums in another order); bfloat16
 ``atol = rtol = 2e-2`` (both sides round the probabilities to bfloat16
@@ -96,10 +98,12 @@ def test_plain_matches_model_layer(blocking, case, dtype):
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
     q, k, v = (torch.tensor(a) for a in qkv(2, 2, 30, 30, 4, 2, 16))
     before = fa.flash_attention.launches
+    by_route = dict(fa.flash_attention.launches_by_route)
     got = fa.flash_attention(q, k, v, kv_valid_len=torch.tensor(17))
     want = ref.flash_attention(q, k, v, kv_valid_len=17)
     assert torch.equal(got, want)
     assert fa.flash_attention.launches == before
+    assert fa.flash_attention.launches_by_route == by_route
     assert L.flash_attention is fa.flash_attention
 
 
@@ -179,3 +183,63 @@ def test_wrapper_refuses_operands(bad):
         q, k, v = (x.long() for x in (q, k, v))
     with pytest.raises((TypeError, ValueError)):
         fa.flash_attention(q, k, v)
+
+
+def strided(b, n, h, dh, dtype, pad=0, offset=0):
+    """A (b, n, h, dh) view of a tensor with ``pad`` more heads, starting
+    ``offset`` elements into its storage."""
+    base = torch.zeros(b * n * (h + pad) * dh + offset, dtype=dtype)
+    return base[offset:].view(b, n, h + pad, dh)[:, :, :h]
+
+
+# (dtype, dh, kwargs of strided() for q, k and v, route)
+ROUTE_CASES = {
+    "bf16 dh 16": (torch.bfloat16, 16, {}, "tensor_core"),
+    "bf16 dh 24": (torch.bfloat16, 24, {}, "scalar"),
+    "bf16 dh 128": (torch.bfloat16, 128, {}, "tensor_core"),
+    "bf16 dh 256": (torch.bfloat16, 256, {}, "tensor_core"),
+    "bf16 dh 272": (torch.bfloat16, 272, {}, "scalar"),
+    "f32 dh 128": (torch.float32, 128, {}, "scalar"),
+    "f32 dh 16": (torch.float32, 16, {}, "scalar"),
+    "bf16 base 2 bytes off": (torch.bfloat16, 128, {"offset": 1}, "scalar"),
+    "bf16 base 16 bytes off": (torch.bfloat16, 128, {"offset": 8},
+                               "tensor_core"),
+    "bf16 head-strided dh 80 (card tests)": (torch.bfloat16, 80, {"pad": 3},
+                                             "tensor_core"),
+    "bf16 head-strided dh 192 (chip_smoke)": (torch.bfloat16, 192,
+                                              {"pad": 2}, "tensor_core"),
+    "bf16 dh 16, 5 heads of padding": (torch.bfloat16, 16, {"pad": 5},
+                                       "tensor_core"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_route_is_chosen_from_the_operands(case):
+    """The wrapper's choice, made from dtype, dh, strides and base
+    addresses alone, as it makes it before a launch."""
+    dtype, dh, kw, want = ROUTE_CASES[case]
+    q = strided(2, 9, 4, dh, dtype, **kw)
+    k, v = (strided(2, 9, 2, dh, dtype, **kw) for _ in range(2))
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    strides = [*fa._strides(q), *fa._strides(k), *fa._strides(v),
+               *fa._strides(out)]
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert fa._route(q.dtype, dh, strides, ptrs) == want
+
+
+@pytest.mark.parametrize("strides,want", [
+    ((0, 128, 16, 1), "scalar"),       # a broadcast batch
+    ((4, 128, 16, 1), "scalar"),       # a batch stride of 4 elements
+    ((24, 128, 16, 1), "tensor_core"),
+])
+def test_route_refuses_strides_tma_cannot_take(strides, want):
+    """Strides must be positive multiples of 8 elements (16 bytes) along
+    every dimension the kernel steps through; a dimension of extent 1 is
+    never stepped through, so its stride does not count."""
+    base = torch.zeros(4096, dtype=torch.bfloat16)
+    x = base.as_strided((2, 8, 8, 16), strides)
+    one = base.as_strided((1, 8, 8, 16), strides)
+    ptr = base.data_ptr()
+    assert fa._route(x.dtype, 16, fa._strides(x) * 4, (ptr,) * 4) == want
+    assert fa._route(one.dtype, 16, fa._strides(one) * 4,
+                     (ptr,) * 4) == "tensor_core"

@@ -459,7 +459,9 @@ def flash_operands(seed, b, t, s, hq, hkv, dh, dtype, device, head_pad=0):
     return draw(t, hq), draw(s, hkv), draw(s, hkv)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,route", [
+    (torch.float32, "scalar"), (torch.bfloat16, "tensor_core"),
+    (torch.bfloat16, "scalar")])
 @pytest.mark.parametrize("b,t,s,hq,hkv,dh,kw,pad", [
     (2, 16, 16, 4, 2, 16, {}, 0),
     (2, 300, 300, 16, 8, 128, {}, 0),
@@ -471,23 +473,63 @@ def flash_operands(seed, b, t, s, hq, hkv, dh, dtype, device, head_pad=0):
     (1, 90, 90, 4, 1, 256, {}, 0),
     (1, 65, 65, 6, 2, 80, {}, 3),
     (1, 33, 0, 2, 1, 32, {"causal": False}, 0),
+    (1, 65, 65, 4, 4, 64, {}, 0),
+    (1, 127, 127, 8, 2, 128, {}, 0),
+    (2, 127, 127, 4, 2, 16, {"kv_valid_len": 100}, 0),
+    (1, 512, 512, 16, 8, 128, {"prefix_len": 200}, 0),
+    (1, 256, 256, 32, 4, 256, {}, 0),
+    (1, 300, 300, 2, 2, 256, {}, 0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, b, t, s, hq, hkv,
-                                              dh, kw, pad, dtype):
+                                              dh, kw, pad, dtype, route):
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fref
     q, k, v = flash_operands(0, b, t, s, hq, hkv, dh, dtype, cuda_device,
                              pad)
     before = fa.flash_attention.launches
-    got = fa.flash_attention(q, k, v, **kw)
+    on_route = fa.flash_attention.launches_by_route[route]
+    got = fa.flash_attention(q, k, v, route=route, **kw)
     want = fref.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.launches_by_route[route] == on_route + 1
     assert got.dtype == dtype and got.shape == (b, t, hq, dh)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     if kw.get("kv_valid_len") == 0 or s == 0:
         assert not got.float().abs().max()
+
+
+@pytest.mark.parametrize("dtype,dh,route", [
+    (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 24, "scalar"),
+    (torch.float32, 128, "scalar")])
+def test_flash_attention_chooses_its_route_from_the_operands(
+        cuda_device, dtype, dh, route):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v = flash_operands(2, 1, 70, 70, 4, 2, dh, dtype, cuda_device)
+    before = dict(fa.flash_attention.launches_by_route)
+    fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    before[route] += 1
+    assert fa.flash_attention.launches_by_route == before
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 128),
+                                      (torch.bfloat16, 24)])
+def test_flash_attention_tensor_core_route_refuses_operands(cuda_device,
+                                                            dtype, dh):
+    """A route that cannot take the operands raises and launches
+    nothing; no other route is tried."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v = flash_operands(2, 1, 70, 70, 4, 2, dh, dtype, cuda_device)
+    before = (fa.flash_attention.launches,
+              dict(fa.flash_attention.launches_by_route))
+    with pytest.raises(RuntimeError, match="tensor_core route"):
+        fa.flash_attention(q, k, v, route="tensor_core")
+    with pytest.raises(ValueError, match="route"):
+        fa.flash_attention(q, k, v, route="mma")
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.launches_by_route) == before
 
 
 def test_flash_attention_refuses_what_the_kernel_cannot_take(cuda_device):
