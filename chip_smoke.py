@@ -20,14 +20,16 @@ Phases, each printing JSON lines:
    (bound); for pruning, fleet_scan, decision_fused and move_score also
    the profiler's device time per launch (``device_ms``), which tells the
    kernel body from the host's launch rate.  Scans, ``freq``, move scores
-   and Z-order keys (both lanes:
-   the TPU kernel's float32 one at its bench shape 1,000,000 x 3, and the
-   layout generator's float64 one on the 1,199,721-row sample, contiguous
-   and read in place from 32 columns) must be exact, ``cost`` within rel
-   1e-12; flash attention within atol = rtol = 2e-2 in bfloat16 and 1e-5
-   in float32 (qwen3-1.7b's prefill, ragged, smoke, non-causal with
-   ``kv_valid_len``, ``prefix_len`` 96 and 200, ``q_offset`` 64,
-   ``kv_valid_len`` 0, head dims 256 and 192, 32 query heads over 4),
+   and Z-order keys and routes (the TPU kernel's float32 lane at its bench
+   shape 1,000,000 x 3; the layout generator's float64 lane on the
+   1,199,721-row sample, contiguous, read in place from 32 columns and
+   column-major, and a column-stride-2 view; the fused route to 1, 2, 32
+   and 1,024 partitions with keys on a boundary and values past lo/hi)
+   must be exact, ``cost`` within rel 1e-12; flash attention within
+   atol = rtol = 2e-2 in bfloat16 and 1e-5 in float32 (qwen3-1.7b's
+   prefill, ragged, smoke, non-causal with ``kv_valid_len``,
+   ``prefix_len`` 96 and 200, ``q_offset`` 64, ``kv_valid_len`` 0, head
+   dims 256 and 192, 32 query heads over 4),
    both of its routes in bfloat16 (tensor cores, timed as ``ms``, and the
    scalar one as ``earlier_design_ms``) and the scalar one in float32,
    also timing PyTorch's ``scaled_dot_product_attention`` on the same
@@ -80,15 +82,20 @@ Phases, each printing JSON lines:
    queries, card against CPU; every trace bitwise equal.
 12. ``zorder_full``: the ``tpch-sf10-zorder`` cell -- the same six methods
    over ``full``'s table and traffic (built once for both cells) under the
-   Z-order generator (3 key columns, 16 bits, a 1,199,721-row sample);
-   then the full-table route timed alone.
+   Z-order generator (3 key columns, 16 bits, a 1,199,721-row sample),
+   one key launch per build; then Static's full-table route timed alone
+   four ways (keys only, the fused route, ``searchsorted`` + ``clamp_max``
+   alone, keys only on a column-major copy) beside its bound and the
+   sector floor of its key columns.
 
 Kernel launch counts are reset just before each main path and read just
 after it; every 50th (fleet) or 100th (single table) scoring call, and
 every 50th planning call, of a main path is checked against the plain
 version on CPU copies of the same plane, and the first and every 10th
-flash launch of ``serve_full`` and the first and every 10th zorder
-launch of ``zorder_full``, against the plain version on the card.
+flash launch of ``serve_full`` and the first and every 10th call of
+each 64-bit zorder entry (keys, route) in ``zorder_full``, against the
+plain version on the card.  The ``env`` line also lists the global loads
+and stores of every zorder kernel in the built SASS (``cuobjdump``).
 Then the kernels' summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device the script exits 2 before printing any
@@ -2217,34 +2224,68 @@ INT_OPS_PER_S = FP32_OPS_PER_S  # no integer row in the data sheet's table:
 #                                 integer operations count at the float32 rate
 ZORDER_METHODS = ("Static", "Greedy", "Regret", "OREO", "MTS Optimal",
                   "Offline Optimal")
-ZORDER_CASES = [  # (name, lane, rows, columns, key columns, bits, narrow)
-    ("a: bench 1,000,000 x 3, bits 10", "a", 1_000_000, 3, 3, 10, False),
-    ("a: m 4, bits 8, values past lo/hi", "a", 4_097, 4, 4, 8, True),
-    ("a: m 5, bits 6, values past lo/hi", "a", 1_025, 5, 5, 6, True),
-    ("a: m 1, bits 16", "a", 64, 1, 1, 16, False),
+# (name, entry, rows, columns, key columns, bits, narrow, layout, k): entry
+# "a" is zorder_keys (float32), "b" zorder_keys64, "route" zorder_route64;
+# layout "row" is a row-major table, "col" a column-major one, "stride2" a
+# view of every other column of a row-major table twice as wide.
+ZORDER_CASES = [
+    ("a: bench 1,000,000 x 3, bits 10", "a", 1_000_000, 3, 3, 10, False,
+     "row", None),
+    ("a: m 4, bits 8, values past lo/hi", "a", 4_097, 4, 4, 8, True, "row",
+     None),
+    ("a: m 5, bits 6, values past lo/hi", "a", 1_025, 5, 5, 6, True, "row",
+     None),
+    ("a: m 1, bits 16", "a", 64, 1, 1, 16, False, "row", None),
     ("a: m 2, bits 16, a flat column (hi == lo)", "a", 1_024, 2, 2, 16,
-     True),
-    ("a: m 32, bits 1", "a", 77, 32, 32, 1, False),
-    ("a: one row", "a", 1, 3, 3, 10, False),
+     True, "row", None),
+    ("a: m 32, bits 1", "a", 77, 32, 32, 1, False, "row", None),
+    ("a: one row", "a", 1, 3, 3, 10, False, "row", None),
     ("b: sample 1,199,721 x 3, contiguous", "b", 1_199_721, 3, 3, 16,
-     False),
+     False, "row", None),
     ("b: sample 1,199,721 rows of 32 columns, 3 keyed in place", "b",
-     1_199_721, 32, 3, 16, False),
-    ("b: m 4 of 8 columns, values past lo/hi", "b", 4_099, 8, 4, 16, True),
+     1_199_721, 32, 3, 16, False, "row", None),
+    ("b: column-major 1,199,721 x 32, 3 keyed", "b", 1_199_721, 32, 3, 16,
+     False, "col", None),
+    ("b: column stride 2, m 4 of 8 columns, values past lo/hi", "b", 4_099,
+     8, 4, 16, True, "stride2", None),
+    ("b: m 4 of 8 columns, values past lo/hi", "b", 4_099, 8, 4, 16, True,
+     "row", None),
     ("b: m 5 of 8 columns, bits past 63 dropped", "b", 4_099, 8, 5, 16,
-     True),
-    ("b: one row", "b", 1, 8, 3, 16, False),
+     True, "row", None),
+    ("b: one row", "b", 1, 8, 3, 16, False, "row", None),
+    ("route: 1,199,721 rows of 32 columns in place, k 32, values past "
+     "lo/hi", "route", 1_199_721, 32, 3, 16, True, "row", 32),
+    ("route: column-major 1,199,721 x 32, k 32, values past lo/hi",
+     "route", 1_199_721, 32, 3, 16, True, "col", 32),
+    ("route: column stride 2, m 3 of 8 columns, k 32", "route", 4_099, 8, 3,
+     16, True, "stride2", 32),
+    ("route: k 1", "route", 4_099, 8, 3, 16, True, "row", 1),
+    ("route: k 2", "route", 4_099, 8, 3, 16, True, "row", 2),
+    ("route: k 1,024", "route", 100_003, 8, 3, 16, True, "row", 1_024),
+    ("route: m 5 of 8 columns, k 32, bits past 63 dropped", "route", 4_099,
+     8, 5, 16, True, "row", 32),
+    ("route: one row, k 32", "route", 1, 8, 3, 16, False, "row", 32),
 ]
+ZORDER_MAIN = "b: sample 1,199,721 x 3, contiguous"  # a Z-order build's keys
+# zorder_keys64's `path` codes, each forced in zorder_full beside the choice.
+ZORDER_PATHS = {1: "one_row_a_thread", 2: "four_rows_a_thread",
+                3: "warp_tile"}
 
 
-def zorder_bound(rows: int, m: int, bits: int, itemsize: int) -> dict:
+def zorder_bound(rows: int, m: int, bits: int, itemsize: int,
+                 parts: int = 0) -> dict:
     """Least time for ``rows`` keys of ``m`` columns: each value read once,
-    lo/hi read once, one int64 key written per row; per value 4 float
-    operations (subtract, divide, clamp, multiply) in the value's type and
-    4 integer operations per kept bit (shift, mask, shift, or)."""
-    nbytes = rows * m * itemsize + 2 * m * itemsize + rows * 8
+    lo/hi read once, one int64 key (or partition id) written per row; per
+    value 4 float operations (subtract, divide, clamp, multiply) in the
+    value's type and 4 integer operations per kept bit (shift, mask, shift,
+    or).  ``parts`` > 0 routes to that many partitions: its ``parts - 1``
+    boundaries read once and one compare per step of a binary search."""
+    nbytes = (rows * m * itemsize + 2 * m * itemsize + rows * 8
+              + max(parts - 1, 0) * 8)
     float_ops = 4 * rows * m
-    int_ops = 4 * rows * min(m * bits, 64)
+    int_ops = (4 * rows * min(m * bits, 64)
+               + rows * (max(parts - 2, 0).bit_length() + 1 if parts > 1
+                         else 0))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (float_ops / (FP64_OPS_PER_S if itemsize == 8
                           else FP32_OPS_PER_S)
@@ -2254,10 +2295,24 @@ def zorder_bound(rows: int, m: int, bits: int, itemsize: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def zorder_operands(rng, lane, rows, columns, m, narrow, device):
-    """Values (lane a: (rows, m) float32) or a table (lane b: (rows,
-    columns) float64 with m key columns), and lo/hi; ``narrow`` takes lo/hi
-    from the first third of the rows and flattens one column (hi == lo)."""
+def sector_floor_ms(rows: int, zcols, strides, itemsize: int = 8) -> float:
+    """Least time to read the distinct 32-byte sectors that hold the key
+    columns (each once) and write one int64 a row, for a table at a
+    32-byte-aligned base with these (row, column) strides in elements: the
+    sectors of the first 1,024 rows counted and scaled to ``rows``."""
+    import numpy as np
+    span = max(1, min(rows, 1024))
+    addr = (np.arange(span)[:, None] * strides[0]
+            + np.asarray(zcols)[None, :] * strides[1]) * itemsize
+    sectors = len(np.unique(addr // 32))
+    return (sectors * 32 * rows / span + rows * 8) / HBM_BYTES_PER_S * 1e3
+
+
+def zorder_operands(rng, lane, rows, columns, m, narrow, layout, device):
+    """Values (lane a: (rows, m) float32) or a table (lanes b and route:
+    (rows, columns) float64 with m key columns, in ``layout``), and lo/hi;
+    ``narrow`` takes lo/hi from the first third of the rows and flattens
+    one column (hi == lo)."""
     import numpy as np
     import torch
     if lane == "a":
@@ -2273,25 +2328,53 @@ def zorder_operands(rng, lane, rows, columns, m, narrow, device):
 
     def dev(a):
         return torch.as_tensor(a, device=device)
-    return dev(vals), cols, dev(lo), dev(hi)
+    table = dev(vals)
+    if layout == "col":
+        table = table.t().contiguous().t()
+    elif layout == "stride2":
+        wide = torch.zeros((rows, 2 * columns), dtype=table.dtype,
+                           device=device)
+        wide[:, ::2] = table
+        table = wide[:, ::2]
+    return table, cols, dev(lo), dev(hi)
+
+
+def zorder_boundaries(keys, k: int):
+    """A Z-order build's k - 1 key-quantile boundaries of ``keys`` (so the
+    keys of k - 1 rows equal a boundary)."""
+    import numpy as np
+    import torch
+    n = len(keys)
+    cut = np.minimum((np.arange(1, k) * n) // k, n - 1)
+    return torch.sort(keys).values[torch.as_tensor(cut,
+                                                   device=keys.device)]
 
 
 def phase_zorder_kernel(device) -> dict:
-    """The zorder kernel against its plain version, bitwise, at the bench
-    shape, the sample shapes of the main path and edge shapes, timed by
-    CUDA events; returns the summary of the main path's sample shape."""
+    """The zorder kernel's three entries against their plain versions,
+    bitwise, at the bench shape, the shapes of the main path, column-major
+    and column-stride-2 tables, routes to 1, 2, 32 and 1,024 partitions
+    (keys on a boundary, values past lo/hi) and edge shapes, timed by CUDA
+    events; returns the summary of the main path's sample keys."""
     import ctypes
     import numpy as np
     import torch
     from repro_torch.kernels.zorder import ref as zref, zorder
     rng = np.random.default_rng(15)
     lib = zorder._lib()
+    if lib.zorder_max_parts() != zorder.MAX_PARTS:
+        raise AssertionError(f"zorder: the kernel takes "
+                             f"{lib.zorder_max_parts()} partitions, the "
+                             f"wrapper {zorder.MAX_PARTS}")
     stream = torch.cuda.current_stream(device).cuda_stream
     results = []
-    for name, lane, rows, columns, m, bits, narrow in ZORDER_CASES:
+    for (name, lane, rows, columns, m, bits, narrow, layout,
+         k) in ZORDER_CASES:
         vals, cols, lo, hi = zorder_operands(rng, lane, rows, columns, m,
-                                             narrow, device)
+                                             narrow, layout, device)
         out = torch.empty(rows, dtype=torch.int64, device=device)
+        host_cols = (ctypes.c_int64 * m)(*cols)
+        extra = {}
         if lane == "a":
             def wrapper():
                 return zorder.zorder_keys(vals, lo, hi, bits)
@@ -2303,9 +2386,7 @@ def phase_zorder_kernel(device) -> dict:
                 lib.zorder_keys32(vals.data_ptr(), lo.data_ptr(),
                                   hi.data_ptr(), out.data_ptr(), rows, m,
                                   bits, stream)
-        else:
-            host_cols = (ctypes.c_int64 * m)(*cols)
-
+        elif lane == "b":
             def wrapper():
                 return zorder.zorder_keys64(vals, cols, lo, hi)
 
@@ -2314,33 +2395,80 @@ def phase_zorder_kernel(device) -> dict:
 
             def raw():
                 lib.zorder_keys64(vals.data_ptr(), vals.stride(0),
-                                  ctypes.addressof(host_cols), lo.data_ptr(),
-                                  hi.data_ptr(), out.data_ptr(), rows, m,
-                                  stream)
+                                  vals.stride(1), ctypes.addressof(host_cols),
+                                  lo.data_ptr(), hi.data_ptr(),
+                                  out.data_ptr(), rows, m, 0, stream)
+        else:
+            keys = zref.zorder_keys64(vals, cols, lo, hi)
+            bnd = zorder_boundaries(keys, k)
+            extra = {"k": k, "keys_on_a_boundary":
+                     int(torch.isin(keys, bnd).sum())}
+            if k > 1 and not extra["keys_on_a_boundary"]:
+                raise AssertionError(f"zorder case {name}: no key equals a "
+                                     f"boundary")
+
+            def wrapper():
+                return zorder.zorder_route64(vals, cols, lo, hi, bnd, k)
+
+            def plain():
+                return zref.zorder_route64(vals, cols, lo, hi, bnd, k)
+
+            def raw():
+                lib.zorder_route64(vals.data_ptr(), vals.stride(0),
+                                   vals.stride(1),
+                                   ctypes.addressof(host_cols),
+                                   lo.data_ptr(), hi.data_ptr(),
+                                   bnd.data_ptr(), k, out.data_ptr(), rows,
+                                   m, 0, stream)
         got, want = wrapper(), plain()
         torch.cuda.synchronize()
         mismatches = int((got != want).sum())
         if mismatches:
             raise AssertionError(f"zorder kernel disagrees at {name}: "
-                                 f"{mismatches} of {rows} keys differ")
+                                 f"{mismatches} of {rows} outputs differ")
         reps = 200 if rows > 10_000 else 1000
         row = {"shape": name, "lane": lane, "rows": rows,
-               "columns": columns, "zcols": cols if lane == "b" else None,
-               "bits": bits, "equal": True, "max_abs_err": 0,
+               "columns": columns, "zcols": cols if lane != "a" else None,
+               "strides": list(vals.stride()), "bits": bits, "equal": True,
+               "max_abs_err": 0, **extra,
                "ms": cuda_time_ms(raw, reps),
                "wrapper_ms": cuda_time_ms(wrapper, reps),
                "plain_ms": cuda_time_ms(plain, 20),
-               **zorder_bound(rows, m, bits, vals.element_size())}
+               **zorder_bound(rows, m, bits, vals.element_size(), k or 0)}
+        if lane != "a":
+            row["sector_floor_ms"] = sector_floor_ms(rows, cols,
+                                                     vals.stride())
         results.append(row)
         emit("kernel", kernel="zorder", **row)
-    main = next(r for r in results if r["lane"] == "b"
-                and r["columns"] == FULL_COLUMNS)
+    main = next(r for r in results if r["shape"] == ZORDER_MAIN)
     return {"name": "zorder", "route": "cuda",
             "source": "src/repro_torch/csrc/zorder.cu",
             "replaces": "src/repro/kernels/zorder/zorder.py:49",
             "max_abs_err": 0, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None}
+
+
+def sass_memory_ops(library) -> dict:
+    """The global loads and stores of each kernel in a built library, as
+    ``cuobjdump -sass`` prints them: {kernel: {opcode: count}}.  An
+    ``LTC128B``/``LTC256B`` suffix is an L2 prefetch of that many bytes."""
+    import re
+    from repro_torch.kernels import _backend
+    tool = str(Path(_backend._nvcc()).parent / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    ops, kernel = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            kernel = head.group(1)
+            ops[kernel] = {}
+            continue
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?((?:LDG|STG)\S*)", line)
+        if op and kernel:
+            ops[kernel][op.group(1)] = ops[kernel].get(op.group(1), 0) + 1
+    return ops
 
 
 def zorder_methods(data, stream, alpha, parts, gen):
@@ -2392,7 +2520,8 @@ def phase_zorder_parity(device, rows: int = 20_000,
         traces = {}
         for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
             data = base.to(dev)
-            before = zorder.zorder_keys64.launches
+            before = (zorder.zorder_keys64.launches
+                      + zorder.zorder_route64.launches)
             gen = core.make_generator("zorder")
             for name, make in zorder_methods(data, stream, 40.0, 16,
                                              gen).items():
@@ -2401,7 +2530,8 @@ def phase_zorder_parity(device, rows: int = 20_000,
                     data)).run(stream, name=name)
                 traces[side, name] = (res, time.perf_counter() - t0)
             if side == "card":
-                launches += zorder.zorder_keys64.launches - before
+                launches += (zorder.zorder_keys64.launches
+                             + zorder.zorder_route64.launches - before)
         for name in ZORDER_METHODS:
             (a, ta), (b, tb) = traces["card", name], traces["cpu", name]
             same = (np.array_equal(a.query_costs, b.query_costs)
@@ -2422,36 +2552,50 @@ def phase_zorder_parity(device, rows: int = 20_000,
 
 
 class ZOrderAudit:
-    """Holds the first and every ``every``-th zorder launch of a main path
-    against the plain version on the same card tensors (in row chunks, so
-    the check's temporaries stay small beside the table).  It calls the
-    wrapper once per call and launches no kernel itself."""
+    """Holds the first and every ``every``-th launch of each zorder entry
+    of a main path (``zorder_keys64``: a build's sample keys;
+    ``zorder_route64``: a table routed through a layout) against the plain
+    version on the same card tensors (in row chunks, so the check's
+    temporaries stay small beside the table).  It calls the wrapper once
+    per call and launches no kernel itself."""
+
+    ENTRIES = ("zorder_keys64", "zorder_route64")
 
     def __init__(self, every: int, chunk: int = 1 << 22):
+        import functools
         from repro_torch.kernels.zorder import ops
         self.ops, self.every, self.chunk = ops, every, chunk
-        self.inner = ops.zorder_keys64
-        self.calls = self.checked = 0
+        self.inner = {e: getattr(ops, e) for e in self.ENTRIES}
+        self.calls = dict.fromkeys(self.ENTRIES, 0)
+        self.checked = dict.fromkeys(self.ENTRIES, 0)
         self.rows_checked = 0
-        ops.zorder_keys64 = self
+        for e in self.ENTRIES:
+            setattr(ops, e, functools.partial(self._call, e))
 
     def close(self) -> None:
-        self.ops.zorder_keys64 = self.inner
+        for e, fn in self.inner.items():
+            setattr(self.ops, e, fn)
 
-    def __call__(self, table, zcols, col_lo, col_hi):
+    def short(self) -> list:
+        """The entries audited fewer times than every ``every``-th call."""
+        return [e for e in self.ENTRIES
+                if self.checked[e] < -(-self.calls[e] // self.every)]
+
+    def _call(self, entry, table, zcols, col_lo, col_hi, *rest):
         import torch
         from repro_torch.kernels.zorder import ref as zref
-        got = self.inner(table, zcols, col_lo, col_hi)
-        self.calls += 1
-        if (self.calls - 1) % self.every == 0:
+        got = self.inner[entry](table, zcols, col_lo, col_hi, *rest)
+        self.calls[entry] += 1
+        if (self.calls[entry] - 1) % self.every == 0:
+            plain = getattr(zref, entry)
             for s in range(0, len(table), self.chunk):
-                want = zref.zorder_keys64(table[s:s + self.chunk], zcols,
-                                          col_lo, col_hi)
+                want = plain(table[s:s + self.chunk], zcols, col_lo, col_hi,
+                             *rest)
                 if not torch.equal(got[s:s + self.chunk], want):
-                    raise AssertionError(f"zorder_full: zorder launch "
-                                         f"{self.calls} differs from the "
-                                         f"plain version at rows {s}..")
-            self.checked += 1
+                    raise AssertionError(f"zorder_full: {entry} call "
+                                         f"{self.calls[entry]} differs from "
+                                         f"the plain version at rows {s}..")
+            self.checked[entry] += 1
             self.rows_checked += len(table)
         return got
 
@@ -2487,8 +2631,10 @@ def cell_zorder(device, data, stream) -> dict:
     import torch
     from repro_torch import core, engine
     from repro_torch.kernels.pruning import pruning, ref
-    from repro_torch.kernels.zorder import ref as zref, zorder
+    from repro_torch.kernels.zorder import zorder
     queries = len(stream)
+    entries = (zorder.zorder_keys, zorder.zorder_keys64,
+               zorder.zorder_route64)
     results, counts = {}, {"zorder": 0, "pruning": 0}
     for name in ZORDER_METHODS:
         gen = TimedGenerator(core.make_generator("zorder"))
@@ -2496,7 +2642,8 @@ def cell_zorder(device, data, stream) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         audit = ZOrderAudit(every=10)
-        zorder.zorder_keys.launches = zorder.zorder_keys64.launches = 0
+        for fn in entries:
+            fn.launches = 0
         pruning.scan_matrix.launches = 0
         try:
             t0 = time.perf_counter()
@@ -2510,8 +2657,7 @@ def cell_zorder(device, data, stream) -> dict:
             run_wall = time.perf_counter() - t0
         finally:
             audit.close()
-        launched = {"zorder": zorder.zorder_keys64.launches
-                    + zorder.zorder_keys.launches,
+        launched = {"zorder": sum(fn.launches for fn in entries),
                     "pruning": pruning.scan_matrix.launches}
         for k, v in launched.items():
             counts[k] += v
@@ -2520,10 +2666,15 @@ def cell_zorder(device, data, stream) -> dict:
                 and (costs >= 0).all() and (costs <= 1).all()
                 and len(res.state_seq) == queries):
             raise AssertionError(f"zorder_full: {name} trace malformed")
-        if launched["zorder"] <= 0 or audit.checked < -(-audit.calls // 10):
+        if launched["zorder"] <= 0 or audit.short():
             raise AssertionError(f"zorder_full: {name} made "
                                  f"{launched['zorder']} zorder launches, "
-                                 f"{audit.checked} audited")
+                                 f"audited {audit.checked} of "
+                                 f"{audit.calls} calls")
+        if zorder.zorder_keys64.launches != gen.calls:
+            raise AssertionError(f"zorder_full: {name} made "
+                                 f"{zorder.zorder_keys64.launches} key "
+                                 f"launches for {gen.calls} builds")
         results[name] = res
         emit("zorder_full", method=name, total_cost=res.total_cost,
              query_cost=res.total_query_cost,
@@ -2532,6 +2683,8 @@ def cell_zorder(device, data, stream) -> dict:
              reorg_seconds=res.reorg_seconds,
              serve_seconds=res.serve_seconds, run_wall_seconds=run_wall,
              zorder_launches=launched["zorder"],
+             zorder_key_launches=zorder.zorder_keys64.launches,
+             zorder_route_launches=zorder.zorder_route64.launches,
              pruning_launches=launched["pruning"],
              zorder_audited=audit.checked,
              zorder_rows_audited=audit.rows_checked,
@@ -2562,25 +2715,8 @@ def cell_zorder(device, data, stream) -> dict:
                                      f"{res.num_reorgs} times for "
                                      f"{switches} template changes")
     emit("zorder_full", stages=zorder_stages(device, data, stream))
-    # The full-table route of Static's layout, timed alone.
-    import ctypes
-    lib = zorder._lib()
-    n, m = len(data), len(route.zcols)
-    out = torch.empty(n, dtype=torch.int64, device=device)
-    host_cols = (ctypes.c_int64 * m)(*route.zcols.tolist())
-    cuda_stream = torch.cuda.current_stream(device).cuda_stream
-
-    def raw():
-        lib.zorder_keys64(data.data_ptr(), data.stride(0),
-                          ctypes.addressof(host_cols),
-                          route.col_lo.data_ptr(), route.col_hi.data_ptr(),
-                          out.data_ptr(), n, m, cuda_stream)
-    emit("zorder_full", kernel="zorder", shape=f"full-table route, {n} x "
-         f"{data.shape[1]}, zcols {route.zcols.tolist()}",
-         ms=cuda_time_ms(raw, 20),
-         plain_ms=cuda_time_ms(lambda: zref.zorder_keys64(
-             data, route.zcols, route.col_lo, route.col_hi), 3),
-         **zorder_bound(n, m, 16, 8))
+    for row in zorder_full_route(device, data, route):
+        emit("zorder_full", kernel="zorder", **row)
     oreo, static = results["OREO"], results["Static"]
     emit("zorder_full", cell="tpch-sf10-zorder",
          oreo_vs_static_pct=100.0 * (static.total_cost - oreo.total_cost)
@@ -2591,6 +2727,106 @@ def cell_zorder(device, data, stream) -> dict:
         raise AssertionError("zorder_full: the main path never launched the "
                              "zorder kernel")
     return counts
+
+
+def zorder_full_route(device, data, route) -> list:
+    """The full-table route of ``route`` (Static's layout) timed alone,
+    four ways: keys only on the row-major table (the earlier route's first
+    launch), the fused route (``zorder_route64``, what the main path runs),
+    ``searchsorted`` + ``clamp_max`` alone over those keys (the earlier
+    route's other two launches, what fusion saves), and keys only on a
+    column-major copy of the table (made and freed here).  Each output is
+    held bitwise against the plain version or the row-major keys; each row
+    carries the zcols, the bound and the sector floor."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.zorder import ref as zref, zorder
+    lib = zorder._lib()
+    n, m, k = len(data), len(route.zcols), route.k
+    zcols = route.zcols.tolist()
+    lo, hi, bnd = route.col_lo, route.col_hi, route.boundaries
+    host_cols = (ctypes.c_int64 * m)(*zcols)
+    cuda_stream = torch.cuda.current_stream(device).cuda_stream
+    keys = torch.empty(n, dtype=torch.int64, device=device)
+    ids = torch.empty(n, dtype=torch.int64, device=device)
+
+    def keys_only(table, path=0):
+        return lambda: lib.zorder_keys64(
+            table.data_ptr(), table.stride(0), table.stride(1),
+            ctypes.addressof(host_cols), lo.data_ptr(), hi.data_ptr(),
+            keys.data_ptr(), n, m, path, cuda_stream)
+
+    def fused():
+        lib.zorder_route64(data.data_ptr(), data.stride(0), data.stride(1),
+                           ctypes.addressof(host_cols), lo.data_ptr(),
+                           hi.data_ptr(), bnd.data_ptr(), k, ids.data_ptr(),
+                           n, m, 0, cuda_stream)
+
+    def by_path(table):
+        """Keys-only ms with each of the kernel's ways of taking rows forced
+        (None where one cannot take the table); the kernel chooses among
+        them from the operands."""
+        ms = {}
+        for path, name in ZORDER_PATHS.items():
+            ok = keys_only(table, path)() == 0
+            ms[f"ms_{name}"] = (cuda_time_ms(keys_only(table, path), 10)
+                                if ok else None)
+        return ms
+
+    def searchsorted():
+        return torch.clamp_max(torch.searchsorted(bnd, keys, right=True),
+                               k - 1)
+
+    def check(what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"zorder_full: {what} differs from its "
+                                 f"plain version")
+
+    floor_rows = sector_floor_ms(n, zcols, data.stride())
+    common = {"rows": n, "columns": data.shape[1], "zcols": zcols,
+              "k": k, "card": card_line()}
+    rows = []
+    ms = cuda_time_ms(keys_only(data), 20)
+    want_keys = zref.zorder_keys64(data, zcols, lo, hi)
+    check("the full-table keys", keys, want_keys)
+    rows.append({"shape": "full-table keys, row-major", **common, "ms": ms,
+                 **by_path(data),
+                 "plain_ms": cuda_time_ms(lambda: zref.zorder_keys64(
+                     data, zcols, lo, hi), 3),
+                 "sector_floor_ms": floor_rows, **zorder_bound(n, m, 16, 8)})
+    ms = cuda_time_ms(fused, 20)
+    want_ids = zref.zorder_route64(data, zcols, lo, hi, bnd, k)
+    check("the fused full-table route", ids, want_ids)
+    rows.append({"shape": "full-table route, row-major, fused", **common,
+                 "ms": ms, "over_keys_only": ms / rows[0]["ms"],
+                 "plain_ms": cuda_time_ms(lambda: zref.zorder_route64(
+                     data, zcols, lo, hi, bnd, k), 3),
+                 "sector_floor_ms": floor_rows,
+                 **zorder_bound(n, m, 16, 8, k)})
+    keys.copy_(want_keys)
+    del want_keys
+    ms = cuda_time_ms(searchsorted, 20)
+    check("searchsorted + clamp_max", searchsorted(), want_ids)
+    rows.append({"shape": "searchsorted + clamp_max over the full table's "
+                 "keys (no zorder launch)", **common, "ms": ms,
+                 "bound_of_its_bytes_ms": 2 * n * 8 / HBM_BYTES_PER_S * 1e3,
+                 "sector_floor_ms": floor_rows,
+                 **zorder_bound(n, m, 16, 8, k)})
+    del want_ids
+    columnar = data.t().contiguous().t()
+    ms = cuda_time_ms(keys_only(columnar), 20)
+    check("the column-major keys", keys,
+          zref.zorder_keys64(data, zcols, lo, hi))
+    rows.append({"shape": "full-table keys, column-major copy", **common,
+                 "strides": list(columnar.stride()), "ms": ms,
+                 **by_path(columnar),
+                 "sector_floor_ms": sector_floor_ms(n, zcols,
+                                                    columnar.stride()),
+                 **zorder_bound(n, m, 16, 8)})
+    del columnar
+    release(device)
+    return rows
 
 
 def main(argv=None) -> int:
@@ -2616,13 +2852,18 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     _backend.build()
+    try:
+        zorder_sass = sass_memory_ops(_backend.build_dir() / "libzorder.so")
+    except (OSError, subprocess.SubprocessError) as e:
+        zorder_sass = {"not read": str(e)}
     emit("env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
          build_seconds=_backend.build_seconds,
          build_dir=str(_backend.build_dir().relative_to(ROOT)),
          ptxas={k: [ln.strip() for ln in v.splitlines()
                     if "ptxas" in ln or "spill" in ln]
-                for k, v in _backend.build_logs.items()})
+                for k, v in _backend.build_logs.items()},
+         zorder_sass=zorder_sass)
 
     kernels = {"pruning": phase_kernel(device), **phase_fleet_kernels(device),
                "move_score": phase_move_score_kernel(device),

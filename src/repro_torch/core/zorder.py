@@ -7,11 +7,14 @@ equal-size partitions.
 Split between host and device: the column choice and the sample draw (a
 numpy ``Generator``, seeded as in the reference) stay on the host; the
 sample gather, its bounds, the keys, their sort and the zone maps run on
-the table's device.  The keys come from the Z-order kernel's 64-bit lane
+the table's device.  A build keys its sample's key columns once, with the
+Z-order kernel's 64-bit lane
 (:func:`repro_torch.kernels.zorder.ops.zorder_keys64`), as int64 with bit
-63 flipped so that signed order is the reference's unsigned order; the
-router reads the table in place and routes by ``torch.searchsorted``.
-Every step is exact, so the layout equals the reference's.
+63 flipped so that signed order is the reference's unsigned order, and
+routes the sample by ``torch.searchsorted`` over those keys; the router
+reads a table in place and keys and routes it in one kernel pass
+(:func:`repro_torch.kernels.zorder.ops.zorder_route64`).  Every step is
+exact, so the layout equals the reference's.
 
 :func:`quantize_columns` and :func:`interleave_bits` are host numpy copies
 of the reference's, kept for parity checks.
@@ -71,11 +74,8 @@ class _ZOrderRouter:
         self.k = k
 
     def __call__(self, rows: torch.Tensor) -> torch.Tensor:
-        keys = zops.zorder_keys64(rows, self.zcols, self.col_lo,
-                                  self.col_hi)
-        return torch.clamp_max(
-            torch.searchsorted(self.boundaries, keys, right=True),
-            self.k - 1)
+        return zops.zorder_route64(rows, self.zcols, self.col_lo,
+                                   self.col_hi, self.boundaries, self.k)
 
 
 def build_zorder_layout(layout_id: int,
@@ -109,14 +109,17 @@ def build_zorder_layout(layout_id: int,
     sub = sample.index_select(1, torch.as_tensor(zcols, device=dev))
     col_lo = sub.amin(dim=0)
     col_hi = sub.amax(dim=0)
-    keys = zops.zorder_keys64(sample, zcols, col_lo, col_hi)
+    keys = zops.zorder_keys64(sub, np.arange(len(zcols)), col_lo, col_hi)
 
     # Key-quantile boundaries let `route` assign any row consistently.
     cut = np.minimum((np.arange(1, k) * m) // k, m - 1)
     boundaries = torch.sort(keys).values[torch.as_tensor(cut, device=dev)]
 
     route = _ZOrderRouter(zcols, col_lo, col_hi, boundaries, k)
-    meta = layouts.metadata_from_assignment(sample, route(sample), k,
+    # route(sample), from the keys already made.
+    assignment = torch.clamp_max(
+        torch.searchsorted(boundaries, keys, right=True), k - 1)
+    meta = layouts.metadata_from_assignment(sample, assignment, k,
                                             row_scale=n / m)
     return layouts.Layout(
         layout_id=layout_id,

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the Z-order (Morton) key kernel.
 
-Two functions, the two lanes of ``csrc/zorder.cu``:
+Three functions, the three entries of ``csrc/zorder.cu``:
 
 * :func:`zorder_keys` -- the TPU kernel's function: (N, m) float32 values
   quantized in float32 to ``bits``-bit codes, ``m * bits <= 32``, keys as
@@ -13,6 +13,9 @@ Two functions, the two lanes of ``csrc/zorder.cu``:
   (:func:`flip`), so signed order equals the unsigned order of the
   reference's uint64 keys and ``torch.searchsorted`` (which has no uint64
   version) routes by them; :func:`unflip` gives the uint64 keys back.
+* :func:`zorder_route64` -- those keys routed to the partitions of a
+  Z-order layout: ``searchsorted`` over its ``k - 1`` flipped key
+  boundaries, clamped to ``k - 1``.
 
 Bit b of column j lands at position ``b * m + j`` in both lanes.  Every
 step is one IEEE operation in the reference's type (subtract, floor the
@@ -78,3 +81,14 @@ def zorder_keys64(table: torch.Tensor, zcols: Sequence[int],
     q = torch.clamp((table.index_select(1, cols) - col_lo) / span, 0.0, 1.0)
     codes = (q * ((1 << ZBITS) - 1)).to(torch.int64)
     return flip(_interleave(codes, ZBITS, 64))
+
+
+def zorder_route64(table: torch.Tensor, zcols: Sequence[int],
+                   col_lo: torch.Tensor, col_hi: torch.Tensor,
+                   boundaries: torch.Tensor, k: int) -> torch.Tensor:
+    """(N, C) float64 table, m column indices, (m,) float64 lo/hi, the
+    ``k - 1`` sorted flipped int64 key boundaries -> (N,) int64 partition
+    ids in ``[0, k - 1]``."""
+    keys = zorder_keys64(table, zcols, col_lo, col_hi)
+    return torch.clamp_max(
+        torch.searchsorted(boundaries, keys, right=True), k - 1)

@@ -661,18 +661,150 @@ def test_zorder64_kernel_matches_plain(cuda_device, n, c, zcols, row_step):
     assert torch.equal(got.cpu(), want)
 
 
+def zorder_table(rng, n, c, zcols, layout, device):
+    """A (n, c) float64 table in ``layout`` ("row", "col": column-major,
+    "stride2": every other column of a table twice as wide) and lo/hi from
+    its first third (the rest lies outside; one column flat)."""
+    table = rng.uniform(-50, 150, (n, c))
+    cols = list(zcols)
+    sub = table[: max(1, n // 3), cols]
+    lo, hi = sub.min(0), sub.max(0)
+    if len(cols) > 1:
+        hi[1] = lo[1]
+    card = torch.as_tensor(table, device=device)
+    if layout == "col":
+        card = card.t().contiguous().t()
+    elif layout == "stride2":
+        wide = torch.zeros((n, 2 * c), dtype=torch.float64, device=device)
+        wide[:, ::2] = card
+        card = wide[:, ::2]
+    return (torch.as_tensor(table), card, cols, torch.as_tensor(lo),
+            torch.as_tensor(hi))
+
+
+@pytest.mark.parametrize("layout", ["col", "stride2"])
+@pytest.mark.parametrize("n,c,zcols", [
+    (1_199_721, 32, (0, 4, 9)),     # the tpch-sf10-zorder sample
+    (5000, 8, (3,)), (5000, 8, (1, 6)), (4099, 8, (0, 3, 5, 6)),
+    (4099, 8, (1, 2, 4, 5, 7)), (1, 4, (2, 0))])
+def test_zorder64_kernel_reads_any_strides(cuda_device, n, c, zcols, layout):
+    from repro_torch.kernels.zorder import ref as zref, zorder
+    rng = np.random.default_rng(n + c + len(layout))
+    table, card, cols, lo, hi = zorder_table(rng, n, c, zcols, layout,
+                                             cuda_device)
+    before = zorder.zorder_keys64.launches
+    got = zorder.zorder_keys64(card, cols, lo.to(cuda_device),
+                               hi.to(cuda_device))
+    torch.cuda.synchronize()
+    assert zorder.zorder_keys64.launches == before + 1
+    assert torch.equal(got.cpu(), zref.zorder_keys64(table, cols, lo, hi))
+
+
+@pytest.mark.parametrize("n,c,zcols,k,layout", [
+    (1_199_721, 32, (0, 4, 9), 32, "row"),   # the tpch-sf10-zorder sample
+    (1_199_721, 32, (0, 4, 9), 32, "col"),
+    (5000, 8, (0, 2, 7), 1, "row"), (5000, 8, (0, 2, 7), 2, "row"),
+    (5000, 8, (1, 6), 16, "stride2"), (100_003, 8, (0, 3, 5), 1024, "row"),
+    (20_000, 8, (1, 2, 4, 5), 4097, "row"),
+    (4099, 8, (1, 2, 4, 5, 7), 32, "col"), (1, 4, (2, 0), 32, "row")])
+def test_zorder_route_kernel_matches_plain(cuda_device, n, c, zcols, k,
+                                           layout):
+    """Key-quantile boundaries, so k - 1 rows' keys equal a boundary."""
+    from repro_torch.kernels.zorder import ref as zref, zorder
+    rng = np.random.default_rng(n + k)
+    table, card, cols, lo, hi = zorder_table(rng, n, c, zcols, layout,
+                                             cuda_device)
+    keys = zref.zorder_keys64(table, cols, lo, hi)
+    cut = np.minimum((np.arange(1, k) * n) // k, n - 1)
+    bnd = torch.sort(keys).values[torch.as_tensor(cut, dtype=torch.int64)]
+    if k > 1:
+        assert torch.isin(keys, bnd).any()
+    before = zorder.zorder_route64.launches
+    got = zorder.zorder_route64(card, cols, lo.to(cuda_device),
+                                hi.to(cuda_device), bnd.to(cuda_device), k)
+    torch.cuda.synchronize()
+    assert zorder.zorder_route64.launches == before + 1
+    want = zref.zorder_route64(table, cols, lo, hi, bnd, k)
+    assert torch.equal(got.cpu(), want)
+    assert int(want.max()) <= k - 1
+
+
+@pytest.mark.parametrize("zcols", [(4, 8, 29), (0, 3, 5), (5, 6, 7),
+                                   (31,), (1, 9), (0, 8, 16, 24)])
+def test_zorder64_every_row_path_matches_plain(cuda_device, zcols):
+    """The kernel's three ways of taking rows (one row a thread, four, a
+    warp tile), each forced, on a row-major 32-column table: keys and
+    routes equal the plain versions."""
+    import ctypes
+    from repro_torch.kernels.zorder import ref as zref, zorder
+    rng = np.random.default_rng(sum(zcols))
+    n, k = 70_001, 32
+    table, card, cols, lo, hi = zorder_table(rng, n, 32, zcols, "row",
+                                             cuda_device)
+    keys = zref.zorder_keys64(table, cols, lo, hi)
+    cut = np.minimum((np.arange(1, k) * n) // k, n - 1)
+    bnd = torch.sort(keys).values[torch.as_tensor(cut, dtype=torch.int64)]
+    want = zref.zorder_route64(table, cols, lo, hi, bnd, k)
+    lib = zorder._lib()
+    m = len(cols)
+    host_cols = (ctypes.c_int64 * m)(*cols)
+    dlo, dhi, dbnd = (a.to(cuda_device) for a in (lo, hi, bnd))
+    out = torch.empty(n, dtype=torch.int64, device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for path in (1, 2, 3):
+        assert lib.zorder_keys64(card.data_ptr(), 32, 1,
+                                 ctypes.addressof(host_cols), dlo.data_ptr(),
+                                 dhi.data_ptr(), out.data_ptr(), n, m, path,
+                                 stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), keys), path
+        assert lib.zorder_route64(card.data_ptr(), 32, 1,
+                                  ctypes.addressof(host_cols),
+                                  dlo.data_ptr(), dhi.data_ptr(),
+                                  dbnd.data_ptr(), k, out.data_ptr(), n, m,
+                                  path, stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want), path
+    # The tile reads only unit column strides; an unknown path is refused.
+    assert lib.zorder_keys64(card.data_ptr(), 32, 2,
+                             ctypes.addressof(host_cols), dlo.data_ptr(),
+                             dhi.data_ptr(), out.data_ptr(), n // 2, m, 3,
+                             stream) != 0
+    assert lib.zorder_keys64(card.data_ptr(), 32, 1,
+                             ctypes.addressof(host_cols), dlo.data_ptr(),
+                             dhi.data_ptr(), out.data_ptr(), n, m, 9,
+                             stream) != 0
+
+
 def test_zorder_refuses_cuda_operands_it_cannot_take(cuda_device):
-    from repro_torch.kernels.zorder import zorder
+    from repro_torch.kernels.zorder import ref as zref, zorder
     v = torch.zeros((8, 6), device=cuda_device)
     b3 = torch.zeros(3, device=cuda_device)
     with pytest.raises(ValueError):                    # strided values
         zorder.zorder_keys(v[:, ::2], b3, b3, 10)
     with pytest.raises(ValueError):                    # mixed devices
         zorder.zorder_keys(v[:, :3].contiguous(), b3.cpu(), b3, 10)
-    t64 = torch.zeros((8, 6), dtype=torch.float64, device=cuda_device)
+    t64 = torch.as_tensor(np.random.default_rng(6).uniform(0, 1, (8, 6)),
+                          device=cuda_device)
     b2 = torch.zeros(2, dtype=torch.float64, device=cuda_device)
-    with pytest.raises(ValueError):                    # column stride 2
-        zorder.zorder_keys64(t64[:, ::2], [0, 1], b2, b2)
+    # A column stride of 2 is read in place, as the plain version reads it.
+    assert torch.equal(
+        zorder.zorder_keys64(t64[:, ::2], [0, 1], b2, b2 + 1).cpu(),
+        zref.zorder_keys64(t64[:, ::2].cpu(), [0, 1], b2.cpu(),
+                           b2.cpu() + 1))
+    assert zorder._lib().zorder_max_parts() == zorder.MAX_PARTS
+    big = zorder.MAX_PARTS + 1
+    with pytest.raises(ValueError, match="partitions"):
+        zorder.zorder_route64(t64, [0, 1], b2, b2,
+                              torch.zeros(big - 1, dtype=torch.int64,
+                                          device=cuda_device), big)
+    with pytest.raises(ValueError):                    # mixed devices
+        zorder.zorder_route64(t64, [0, 1], b2, b2,
+                              torch.zeros(2, dtype=torch.int64), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        zorder.zorder_route64(t64, [0, 1], b2, b2,
+                              torch.zeros(4, dtype=torch.int64,
+                                          device=cuda_device)[::2], 3)
     with pytest.raises(ValueError, match="columns"):
         zorder.zorder_keys64(torch.zeros((2, 40), dtype=torch.float64,
                                          device=cuda_device), range(33),
@@ -721,13 +853,15 @@ def test_zorder_methods_on_the_card_equal_the_cpu(cuda_device):
                                                            40.0, 16)}
     traces = {}
     for data in (card, cpu):
-        before = zorder.zorder_keys64.launches
+        before = (zorder.zorder_keys64.launches,
+                  zorder.zorder_route64.launches)
         for name, policy in policies(data).items():
             res = engine.LayoutEngine(policy, engine.InMemoryBackend(data)
                                       ).run(stream)
             traces[data.device.type, name] = res
         if data.is_cuda:
-            assert zorder.zorder_keys64.launches > before
+            assert zorder.zorder_keys64.launches > before[0]
+            assert zorder.zorder_route64.launches > before[1]
     for name in ("Static", "Greedy", "Regret", "OREO", "MTS Optimal",
                  "Offline Optimal"):
         x, y = traces["cuda", name], traces["cpu", name]

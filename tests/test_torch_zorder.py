@@ -133,6 +133,7 @@ def test_wrappers_refuse_what_the_kernel_cannot_take():
         zops.zorder_keys64(tab, [0, 1], b2.float(), b2)
     assert zkernel.zorder_keys.launches == 0     # CPU calls launch nothing
     assert zkernel.zorder_keys64.launches == 0
+    assert zkernel.zorder_route64.launches == 0
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +171,111 @@ def test_plain_keys64_read_a_strided_view():
     lo, hi = view.amin(0)[[1, 4]], view.amax(0)[[1, 4]]
     want = zops.zorder_keys64(view.contiguous(), [1, 4], lo, hi)
     assert torch.equal(zops.zorder_keys64(view, [1, 4], lo, hi), want)
+
+
+def strided_copies(table):
+    """The same (N, C) values as a column-major table and as a view of
+    every other column of a table twice as wide."""
+    columnar = table.t().contiguous().t()
+    wide = torch.zeros((table.shape[0], 2 * table.shape[1]),
+                       dtype=table.dtype)
+    wide[:, ::2] = table
+    return {"column-major": columnar, "column stride 2": wide[:, ::2]}
+
+
+@pytest.mark.parametrize("k", [1, 2, 16, 32])
+def test_route64_equals_reference_router(bench, k):
+    """ref.zorder_route64 and the wrapper on CPU tensors against the
+    reference's own Z-order routers: keys on a boundary, values past
+    lo/hi, any strides."""
+    data, stream = bench
+    ref = rz.build_zorder_layout(4, data[:3000], stream.queries[:300], k)
+    r = ref.route
+    keys = rz.interleave_bits(rz.quantize_columns(data[:, r.zcols],
+                                                  r.col_lo, r.col_hi))
+    if k > 1:                       # rows of the table sit on boundaries
+        assert np.isin(keys, r.boundaries).sum() >= k - 1
+    sub = data[:, r.zcols]
+    assert (sub < r.col_lo).any() and (sub > r.col_hi).any()
+    want = r(data)
+    tdata_ = t(data)
+    bnd = zref.flip(t(np.ascontiguousarray(r.boundaries).view(np.int64)))
+    args = (r.zcols, t(r.col_lo), t(r.col_hi), bnd, k)
+    got = zref.zorder_route64(tdata_, *args)
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(zops.zorder_route64(tdata_, *args).numpy(), want)
+    for name, view in strided_copies(tdata_).items():
+        assert torch.equal(zops.zorder_route64(view, *args), got), name
+    assert zkernel.zorder_route64.launches == 0  # CPU calls launch nothing
+
+
+def test_keys64_read_column_major_and_column_stride_2():
+    rng = np.random.default_rng(9)
+    table = t(rng.uniform(-50, 150, (3001, 9)))
+    for zcols in ([4], [0, 8], [1, 3, 7], [0, 2, 5, 6], [0, 1, 2, 4, 8]):
+        lo, hi = table[:500, zcols].amin(0), table[:500, zcols].amax(0)
+        want = zops.zorder_keys64(table, zcols, lo, hi)
+        for name, view in strided_copies(table).items():
+            assert torch.equal(zops.zorder_keys64(view, zcols, lo, hi),
+                               want), (name, zcols)
+
+
+def test_route64_refuses_what_the_kernel_cannot_take():
+    tab = torch.zeros((4, 5), dtype=torch.float64)
+    b2 = torch.zeros(2, dtype=torch.float64)
+    big = zkernel.MAX_PARTS + 1
+    with pytest.raises(ValueError, match="partitions"):
+        zops.zorder_route64(tab, [0, 1], b2, b2,
+                            torch.zeros(big - 1, dtype=torch.int64), big)
+    with pytest.raises(ValueError, match="partitions"):
+        zops.zorder_route64(tab, [0, 1], b2, b2,
+                            torch.zeros(0, dtype=torch.int64), 0)
+    with pytest.raises(ValueError, match="shape"):
+        zops.zorder_route64(tab, [0, 1], b2, b2,
+                            torch.zeros(3, dtype=torch.int64), 3)
+    with pytest.raises(TypeError):
+        zops.zorder_route64(tab, [0, 1], b2, b2, torch.zeros(2), 3)
+    with pytest.raises(ValueError, match="out of range"):
+        zops.zorder_route64(tab, [0, 5], b2, b2,
+                            torch.zeros(2, dtype=torch.int64), 3)
+    # The most partitions the kernel takes route on the CPU as well; the
+    # all-zero key (INT64_MIN flipped) equals the first boundary.
+    ids = zops.zorder_route64(
+        tab, [0, 1], b2, b2 + 1,
+        torch.arange(zkernel.MAX_PARTS - 1) + torch.iinfo(torch.int64).min,
+        zkernel.MAX_PARTS)
+    assert ids.tolist() == [1] * 4
+
+
+def test_zorder_build_keys_its_sample_once(bench, monkeypatch):
+    """A build makes one key call (on the contiguous key columns) and no
+    route call; its sample's assignment is route(sample) bit for bit."""
+    data, stream = bench
+    calls = {"zorder_keys64": [], "zorder_route64": []}
+    for name in calls:
+        inner = getattr(zops, name)
+
+        def counted(table, *a, _inner=inner, _name=name):
+            calls[_name].append(tuple(table.shape))
+            return _inner(table, *a)
+        monkeypatch.setattr(zops, name, counted)
+    seen = {}
+    inner_meta = tc.layouts.metadata_from_assignment
+
+    def capture(sample, assignment, k, **kw):
+        seen.update(sample=sample, assignment=assignment)
+        return inner_meta(sample, assignment, k, **kw)
+    monkeypatch.setattr(tc.layouts, "metadata_from_assignment", capture)
+    got = tz.build_zorder_layout(3, t(data), stream.queries[:300], 32)
+    assert calls == {"zorder_keys64": [(got.info["sample_rows"], 3)],
+                     "zorder_route64": []}
+    routed = got.route(seen["sample"])
+    assert calls["zorder_route64"] == [tuple(seen["sample"].shape)]
+    assert torch.equal(seen["assignment"], routed)
+    ref = rz.build_zorder_layout(3, data, stream.queries[:300], 32)
+    assert np.array_equal(routed.numpy(),
+                          ref.route(seen["sample"].numpy()))
 
 
 # ---------------------------------------------------------------------------
