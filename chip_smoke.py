@@ -19,8 +19,15 @@ Phases, each printing JSON lines:
    shapes, with CUDA-event times and the least time the card could take
    (bound); for pruning, fleet_scan, decision_fused and move_score also
    the profiler's device time per launch (``device_ms``), which tells the
-   kernel body from the host's launch rate.  Scans, ``freq``, move scores
-   and Z-order keys and routes (the TPU kernel's float32 lane at its bench
+   kernel body from the host's launch rate.  The pruning kernel runs with
+   the tile it chooses and with each tile forced (one query row a block;
+   a shared-memory tile of 32 partitions walking 32 queries at a time), at
+   the decision loop's block shapes (64, 256 and 1,024 queries x 288 x
+   32, the main path's ``run`` estimates), at Q = 1 (``step``), with query
+   bounds sliced from a larger tensor, a row-strided plane and NaN and
+   +-inf zone maps, beside an empty launch's device time.  Scans,
+   ``freq``, move scores and Z-order keys and routes (the TPU kernel's
+   float32 lane at its bench
    shape 1,000,000 x 3; the layout generator's float64 lane on the
    1,199,721-row sample, contiguous, read in place from 32 columns and
    column-major, and a column-stride-2 view; the fused route to 1, 2, 32
@@ -44,7 +51,12 @@ Phases, each printing JSON lines:
    bitwise equal to the CPU's ``run``.
 5. ``full``: the ``tpch-sf10-oreo`` cell -- OREO and Static over a
    59,986,052-row x 32-column TPC-H-like table (lineitem at scale factor 10)
-   on the card, 12,000 queries of 16 templates, alpha = 80, P = 32.
+   on the card, 12,000 queries of 16 templates, alpha = 80, P = 32; each
+   method's estimate seconds, block scans and discarded block rows; then
+   OREO over the first 3,000 queries as a ``step`` loop (one launch per
+   estimate) and as ``run`` (a block of estimates per launch), in turns
+   step, run, run, step, and ``run`` with blocks of 64 and 1,024 queries:
+   traces bitwise equal, decide and estimate seconds and launches each.
 6. ``fleet_full``: the ``fleet16-sf1-oreo-k1`` cell (16 OREO tenants of
    6,001,215 x 8 under one maintenance worker, ``sudden_shift``, 1,500
    queries per tenant) and the ``fleet64-sf1-threshold`` cell (64 threshold
@@ -83,13 +95,15 @@ Phases, each printing JSON lines:
 12. ``zorder_full``: the ``tpch-sf10-zorder`` cell -- the same six methods
    over ``full``'s table and traffic (built once for both cells) under the
    Z-order generator (3 key columns, 16 bits, a 1,199,721-row sample),
-   one key launch per build; then Static's full-table route timed alone
+   one key launch per build, with each method's estimate seconds, block
+   scans and discarded block rows; then Static's full-table route timed alone
    four ways (keys only, the fused route, ``searchsorted`` + ``clamp_max``
    alone, keys only on a column-major copy) beside its bound and the
    sector floor of its key columns.
 
 Kernel launch counts are reset just before each main path and read just
-after it; every 50th (fleet) or 100th (single table) scoring call, and
+after it; every 50th (fleet) or 100th (single table, per-query scan or
+consumed row of a block scan) scoring call, and
 every 50th planning call, of a main path is checked against the plain
 version on CPU copies of the same plane, and the first and every 10th
 flash launch of ``serve_full`` and the first and every 10th call of
@@ -197,10 +211,14 @@ def scan_bound(q: int, p: int, c: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def scan_operands(rng, q: int, p: int, c: int, device, row_pad: int = 0):
+def scan_operands(rng, q: int, p: int, c: int, device, row_pad: int = 0,
+                  q_lead: int = 0, nan_inf: bool = False):
     """Zone maps and query bounds with +-inf, empty partitions and bounds
     equal to zone-map ends; ``row_pad`` > 0 makes the partition operands a
-    row-strided view of a wider plane."""
+    row-strided view of a wider plane, ``q_lead`` > 0 makes the query
+    bounds a row slice (from row ``q_lead``) of a larger (2, rows, C)
+    tensor, as a run's block estimates read them, and ``nan_inf`` puts NaN
+    and +-inf entries into the zone maps."""
     import numpy as np
     import torch
     mins = rng.uniform(0, 100, (p, c))
@@ -218,64 +236,105 @@ def scan_operands(rng, q: int, p: int, c: int, device, row_pad: int = 0):
         lo[at_max] = maxs[pick, cols][at_max]
     lo[rng.random((q, c)) < 0.4] = -np.inf
     hi[rng.random((q, c)) < 0.4] = np.inf
+    if nan_inf:
+        for a, v, share in ((mins, np.nan, 0.03), (maxs, np.nan, 0.03),
+                            (mins, -np.inf, 0.05), (maxs, np.inf, 0.05)):
+            a[rng.random(a.shape) < share] = v
 
     def dev(a):
         return torch.as_tensor(a, dtype=torch.float64, device=device)
+    if q_lead:
+        bounds = torch.zeros((2, q + q_lead + 3, c), dtype=torch.float64,
+                             device=device)
+        bounds[0, q_lead:q_lead + q], bounds[1, q_lead:q_lead + q] = (
+            dev(lo), dev(hi))
+        lo_t, hi_t = bounds[0, q_lead:q_lead + q], bounds[1,
+                                                          q_lead:q_lead + q]
+    else:
+        lo_t, hi_t = dev(lo), dev(hi)
     if row_pad:
         wide_min = torch.zeros((p, c + row_pad), dtype=torch.float64,
                                device=device)
         wide_max = torch.zeros_like(wide_min)
         wide_min[:, :c], wide_max[:, :c] = dev(mins), dev(maxs)
-        return dev(lo), dev(hi), wide_min[:, :c], wide_max[:, :c]
-    return dev(lo), dev(hi), dev(mins), dev(maxs)
+        return lo_t, hi_t, wide_min[:, :c], wide_max[:, :c]
+    return lo_t, hi_t, dev(mins), dev(maxs)
+
+
+PRUNING_MAIN = "estimate block 256 x n*P_cap"   # run()'s block estimates
+PRUNING_SHAPES = [  # (name, Q, P, C, row_pad, q_lead, nan_inf)
+    (PRUNING_MAIN, 256, 288, 32, 0, 0, False),
+    ("estimate block 64 x n*P_cap", 64, 288, 32, 0, 0, False),
+    ("estimate block 1024 x n*P_cap", 1024, 288, 32, 0, 0, False),
+    ("block rows sliced from a run's bounds", 256, 288, 32, 0, 517, False),
+    ("block, NaN and +-inf zone maps", 256, 288, 32, 0, 0, True),
+    ("state_matrix 1 x n*P_cap (step)", 1, 288, 32, 0, 0, False),
+    ("4 x n*P_cap", 4, 288, 32, 0, 0, False),
+    ("8 x n*P_cap", 8, 288, 32, 0, 0, False),
+    ("16 x n*P_cap", 16, 288, 32, 0, 0, False),
+    ("128 x n*P_cap", 128, 288, 32, 0, 0, False),
+    ("serve 1 x P", 1, 32, 32, 0, 0, False),
+    ("cost_vectors 64 x P", 64, 32, 32, 0, 0, False),
+    ("greedy window 200 x P", 200, 32, 32, 0, 0, False),
+    ("serve_block 1000 x P", 1000, 32, 32, 0, 0, False),
+    ("batch 2048 x P", 2048, 32, 32, 0, 0, False),
+    ("ragged", 1000, 37, 5, 0, 0, False),
+    ("ragged, 70 columns, NaN", 300, 45, 70, 0, 0, True),
+    ("zero columns", 16, 40, 0, 0, 0, False),
+    ("row-strided plane view", 64, 288, 32, 3, 0, False),
+    ("row-strided plane, sliced bounds, 1 query", 1, 288, 32, 3, 9, True),
+]
 
 
 def phase_kernel(device) -> dict:
-    """Kernel against plain version over the listed shapes; returns the
-    summary of the main path's dominant shape (1 x 9*32 x 32)."""
+    """Kernel against plain version over the listed shapes, with the tile
+    the kernel chooses and each tile forced; returns the summary of the
+    main path's dominant shape (PRUNING_MAIN, run()'s block estimates)."""
     import numpy as np
     import torch
     from repro_torch.kernels.pruning import pruning, ref
     rng = np.random.default_rng(0)
-    shapes = [  # (name, Q, P, C, row_pad)
-        ("state_matrix 1 x n*P_cap", 1, 288, 32, 0),
-        ("serve 1 x P", 1, 32, 32, 0),
-        ("cost_vectors 64 x P", 64, 32, 32, 0),
-        ("greedy window 200 x P", 200, 32, 32, 0),
-        ("serve_block 1000 x P", 1000, 32, 32, 0),
-        ("batch 2048 x P", 2048, 32, 32, 0),
-        ("ragged", 1000, 37, 5, 0),
-        ("zero columns", 16, 40, 0, 0),
-        ("row-strided plane view", 64, 288, 32, 3),
-    ]
     fn = pruning._kernel()
     stream = torch.cuda.current_stream(device).cuda_stream
+    tiny = torch.zeros(1, dtype=torch.uint8, device=device)
+    # The device time of a launch that does nothing: a one-byte fill.
+    empty_device_ms = device_ms(lambda: tiny.fill_(0), 200, "FillFunctor")
     results = []
-    for name, q, p, c, pad in shapes:
-        lo, hi, mins, maxs = scan_operands(rng, q, p, c, device, pad)
-        got = pruning.scan_matrix(lo, hi, mins, maxs)
+    for name, q, p, c, pad, lead, nan_inf in PRUNING_SHAPES:
+        lo, hi, mins, maxs = scan_operands(rng, q, p, c, device, pad, lead,
+                                           nan_inf)
         want = ref.scan_matrix(lo, hi, mins, maxs)
-        torch.cuda.synchronize()
-        err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
-        if not torch.equal(got, want):
-            raise AssertionError(f"pruning kernel disagrees at {name} "
-                                 f"({q}, {p}, {c}): max abs err {err}")
-        out = torch.empty((q, p), dtype=torch.bool, device=device)
-        stride = mins.stride(0) if p > 1 and c else c
+        q_stride = pruning._row_stride("q_lo", lo)
+        p_stride = pruning._row_stride("p_min", mins)
+        row = {"shape": name, "q": q, "p": p, "c": c, "q_stride": q_stride,
+               "row_stride": p_stride,
+               "chosen_path": pruning.chosen_path(q, p, c)}
+        err = 0
+        for path, tile in pruning.PATHS.items():
+            got = pruning.scan_matrix(lo, hi, mins, maxs, path=path)
+            torch.cuda.synchronize()
+            if got.numel():
+                err = max(err, int((got.int() - want.int()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"pruning kernel ({tile}) disagrees at "
+                                     f"{name} ({q}, {p}, {c}): max abs err "
+                                     f"{err}")
+            out = torch.empty((q, p), dtype=torch.bool, device=device)
 
-        def raw():
-            fn(lo.data_ptr(), hi.data_ptr(), c, mins.data_ptr(),
-               maxs.data_ptr(), stride, out.data_ptr(), q, p, c, stream)
-        row = {"shape": name, "q": q, "p": p, "c": c,
-               "row_stride": stride, "equal": True, "max_abs_err": err,
-               "ms": cuda_time_ms(raw, 200),
-               **({} if results else {"device_ms": device_ms(
-                   raw, 200, "scan_matrix_kernel")}),
-               "wrapper_ms": cuda_time_ms(
-                   lambda: pruning.scan_matrix(lo, hi, mins, maxs), 200),
-               "plain_ms": cuda_time_ms(
-                   lambda: ref.scan_matrix(lo, hi, mins, maxs), 200),
-               **scan_bound(q, p, c)}
+            def raw(path=path, out=out):
+                fn(lo.data_ptr(), hi.data_ptr(), q_stride, mins.data_ptr(),
+                   maxs.data_ptr(), p_stride, out.data_ptr(), q, p, c, path,
+                   stream)
+            key = "" if path == 0 else f"_{tile}"
+            row[f"ms{key}"] = cuda_time_ms(raw, 200)
+            row[f"device_ms{key}"] = device_ms(raw, 200, "scan_")
+        row.update({"equal": True, "max_abs_err": err,
+                    "empty_launch_device_ms": empty_device_ms,
+                    "wrapper_ms": cuda_time_ms(
+                        lambda: pruning.scan_matrix(lo, hi, mins, maxs), 200),
+                    "plain_ms": cuda_time_ms(
+                        lambda: ref.scan_matrix(lo, hi, mins, maxs), 200),
+                    **scan_bound(q, p, c)})
         results.append(row)
         emit("kernel", kernel="pruning.scan_matrix", **row)
     main = results[0]
@@ -284,6 +343,7 @@ def phase_kernel(device) -> dict:
             "replaces": "src/repro/kernels/pruning/pruning.py:86",
             "max_abs_err": max(r["max_abs_err"] for r in results),
             "ms": main["ms"], "device_ms": main["device_ms"],
+            "shape": main["shape"],
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None}
@@ -304,23 +364,77 @@ class TimedGenerator:
         return layout
 
 
+class EstimateMeter:
+    """Wall seconds inside one backend's estimates (``estimate_costs`` and
+    ``estimate_vector``, whichever path serves them), and the block scans
+    and discarded rows of its runs' lookaheads.  It wraps the instance's
+    methods and launches nothing."""
+
+    def __init__(self, backend):
+        self.seconds, self.calls = 0.0, 0
+        self.blocks = self.rows_discarded = 0
+        for attr in ("estimate_costs", "estimate_vector"):
+            setattr(backend, attr, self._timed(getattr(backend, attr)))
+        inner_close = backend.close_lookahead
+
+        def close():
+            ahead = backend._lookahead
+            inner_close()
+            if ahead is not None:
+                self.blocks += ahead.blocks
+                self.rows_discarded += ahead.rows_discarded
+        backend.close_lookahead = close
+
+    def _timed(self, inner):
+        def timed(*args):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+        return timed
+
+    def fields(self) -> dict:
+        return {"estimate_seconds": self.seconds,
+                "estimate_calls": self.calls,
+                "estimate_blocks": self.blocks,
+                "block_rows_discarded": self.rows_discarded}
+
+
 class EstimateAudit:
     """Checks every ``every``-th state estimate of a run, inside the run.
 
-    The scan that the main path's own launch returned for the plane's
-    ``(n * P_cap, C)`` row-strided view is held against the plain version
-    on CPU copies of the same plane rows, and the costs against a per-state
-    numpy reduction of it.  It launches nothing itself, so the kernel's
-    launch count stays the main path's.
+    Per-query estimates (``step``): the scan that the main path's own
+    launch returned for the plane's ``(n * P_cap, C)`` row-strided view.
+    Block estimates (``run``): the consumed row of the block scan.  Either
+    is held against the plain version on CPU copies of the same plane rows
+    and the query's bounds, and the costs against a per-state numpy
+    reduction of it.  It launches nothing itself, so the kernel's launch
+    count stays the main path's.
     """
 
-    def __init__(self, matrix, every: int):
+    def __init__(self, backend, every: int):
+        matrix = backend.state_matrix
         self.matrix, self.every = matrix, every
-        self.calls = self.checked = 0
+        self.calls = self.checked = self.block_rows_checked = 0
         self._last = None
         self._inner_scanned, self._inner_estimate = (matrix._scanned,
                                                      matrix.estimate)
         matrix._scanned, matrix.estimate = self._scanned, self._estimate
+        inner_open = backend.open_lookahead
+
+        def open_lookahead(*args):
+            ahead = inner_open(*args)
+            inner_costs = ahead.costs
+
+            def costs(m):
+                got = inner_costs(m)
+                self._block_row(ahead, got)
+                return got
+            ahead.costs = costs
+            return ahead
+        backend.open_lookahead = open_lookahead
 
     def _scanned(self, q_lo, q_hi):
         self._last = self._inner_scanned(q_lo, q_hi)
@@ -334,6 +448,21 @@ class EstimateAudit:
             self.check(q_lo, q_hi, self._last, got)
             self.checked += 1
         return got
+
+    def _block_row(self, ahead, got) -> None:
+        self.calls += 1
+        if self.calls % self.every or ahead._block is None:
+            return
+        k = ahead.cursor
+        start, version, scan = ahead._block
+        if version != self.matrix.version:
+            raise AssertionError(f"full: estimate {self.calls} consumed a "
+                                 f"row scanned at plane version {version}, "
+                                 f"now {self.matrix.version}")
+        self.check(ahead._lo[k].cpu().numpy(), ahead._hi[k].cpu().numpy(),
+                   scan[k - start], got)
+        self.checked += 1
+        self.block_rows_checked += 1
 
     def check(self, q_lo, q_hi, scanned, got) -> None:
         import numpy as np
@@ -473,7 +602,8 @@ def phase_full(device, data, stream) -> int:
         backend = engine.InMemoryBackend(data)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
-        audit = EstimateAudit(backend.state_matrix, every=100)
+        audit = EstimateAudit(backend, every=100)
+        meter = EstimateMeter(backend)
         t0 = time.perf_counter()
         res = engine.LayoutEngine(policy, backend).run(stream)
         run_wall = time.perf_counter() - t0
@@ -498,6 +628,7 @@ def phase_full(device, data, stream) -> int:
              kernel_launches=launches,
              launches_per_query=launches / total_queries,
              estimates=audit.calls, estimates_checked=audit.checked,
+             block_rows_checked=audit.block_rows_checked, **meter.fields(),
              qdtree_builds=gen.calls, qdtree_build_seconds=gen.seconds,
              peak_bytes=torch.cuda.max_memory_allocated(device),
              info={k: v for k, v in res.info.items()
@@ -528,7 +659,57 @@ def phase_full(device, data, stream) -> int:
     if launches <= 0:
         raise AssertionError("full: the main path never launched the "
                              "pruning kernel")
+    paired_estimates(device, data, stream, MIN_QUERIES)
     return launches
+
+
+def paired_estimates(device, data, stream, queries: int) -> None:
+    """OREO over the first ``queries`` queries of the stream, as a step()
+    loop (one pruning launch per estimate) and as run() (a block of
+    estimates per launch), in turns (step, run, run, step), then run()
+    with 64- and 1,024-query blocks; every trace must be bitwise equal.
+    Prints each one's decide and estimate seconds and launch counts."""
+    import numpy as np
+    from repro_torch import engine
+    from repro_torch.engine.state_matrix import BlockEstimates
+    from repro_torch.kernels.pruning import pruning
+    head = stream.queries[:queries]
+    rows = BlockEstimates.rows
+    arms = [("step", rows), ("run", rows), ("run", rows), ("step", rows),
+            ("run", 64), ("run", 1024)]
+    first = None
+    for mode, block in arms:
+        policy = policies(data, stream, ALPHA, PARTITIONS)["OREO"]()
+        backend = engine.InMemoryBackend(data)
+        meter = EstimateMeter(backend)
+        eng = engine.LayoutEngine(policy, backend)
+        BlockEstimates.rows = block
+        pruning.scan_matrix.launches = 0
+        t0 = time.perf_counter()
+        try:
+            if mode == "run":
+                res = eng.run(head)
+            else:
+                for q in head:
+                    eng.step(q)
+                res = eng.result()
+        finally:
+            BlockEstimates.rows = rows
+        wall = time.perf_counter() - t0
+        trace = (res.query_costs, res.reorg_indices, res.state_seq)
+        if first is None:
+            first = trace
+        same = (np.array_equal(trace[0], first[0]) and trace[1] == first[1]
+                and np.array_equal(trace[2], first[2]))
+        emit("full", paired="OREO step vs run", mode=mode, queries=queries,
+             block_rows=block if mode == "run" else None,
+             bitwise_equal=same, total_cost=res.total_cost,
+             moves=res.num_reorgs, decide_seconds=res.decide_seconds,
+             run_wall_seconds=wall,
+             pruning_launches=pruning.scan_matrix.launches, **meter.fields())
+        if not same:
+            raise AssertionError(f"full: OREO's {mode} trace (block "
+                                 f"{block}) differs from the first arm's")
 
 
 def stage_peaks(device, data, stream, oreo_policy) -> dict:
@@ -2649,6 +2830,7 @@ def cell_zorder(device, data, stream) -> dict:
             t0 = time.perf_counter()
             policy = make()
             backend = engine.InMemoryBackend(data)
+            meter = EstimateMeter(backend)
             torch.cuda.synchronize()
             setup = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -2685,7 +2867,7 @@ def cell_zorder(device, data, stream) -> dict:
              zorder_launches=launched["zorder"],
              zorder_key_launches=zorder.zorder_keys64.launches,
              zorder_route_launches=zorder.zorder_route64.launches,
-             pruning_launches=launched["pruning"],
+             pruning_launches=launched["pruning"], **meter.fields(),
              zorder_audited=audit.checked,
              zorder_rows_audited=audit.rows_checked,
              zorder_builds=gen.calls, zorder_build_seconds=gen.seconds,

@@ -22,7 +22,7 @@ from repro_torch.core import workload as wl
 from repro_torch.data.partition_store import PartitionStore, write_manifest
 
 from . import compute
-from .state_matrix import StateMatrix
+from .state_matrix import BlockEstimates, StateMatrix
 
 
 @runtime_checkable
@@ -77,7 +77,10 @@ class _RegistryMixin:
 
     The registry mirrors every registered layout's zone maps into a packed
     :class:`StateMatrix` on ``device`` (O(P*C) per register / deregister),
-    so per-query estimation is one scan over persistent tensors.
+    so per-query estimation is one scan over persistent tensors.  While a
+    run's lookahead is open (:meth:`open_lookahead`), the query at its
+    cursor is scored a block of queries per scan instead
+    (:class:`BlockEstimates`); primed costs still come first.
     """
 
     _layouts: Dict[int, L.Layout]
@@ -87,6 +90,29 @@ class _RegistryMixin:
         self._matrix = StateMatrix(device)
         self._primed: Optional[tuple] = None
         self._primed_idx: Optional[tuple] = None
+        self._lookahead: Optional[BlockEstimates] = None
+
+    def open_lookahead(self, queries: Sequence[wl.Query], q_lo: np.ndarray,
+                       q_hi: np.ndarray) -> BlockEstimates:
+        """Install a run's lookahead over ``queries`` (their stacked (N, C)
+        bounds go to the plane's device in one copy); the caller moves its
+        ``cursor`` and closes it with :meth:`close_lookahead`."""
+        self._lookahead = BlockEstimates(queries, q_lo, q_hi,
+                                         self._matrix.device)
+        return self._lookahead
+
+    def close_lookahead(self) -> None:
+        ahead, self._lookahead = self._lookahead, None
+        if ahead is not None:
+            ahead.close()
+
+    def _fresh_costs(self, query: wl.Query) -> np.ndarray:
+        """Per-slot costs of ``query`` off the plane: its row of a block
+        scan when the lookahead covers it, else a per-query scan."""
+        ahead = self._lookahead
+        if ahead is not None and ahead.covers(query):
+            return ahead.costs(self._matrix)
+        return self._matrix.estimate(query.lo, query.hi)
 
     def prime_estimates(self, query: wl.Query, version: int,
                         costs: np.ndarray) -> None:
@@ -161,7 +187,12 @@ class _RegistryMixin:
         costs = self._primed_costs(query)
         if costs is not None:
             return self._primed_dict(costs, state_ids)
-        return self._matrix.estimate_costs(state_ids, query.lo, query.hi)
+        ids = list(state_ids)
+        if not ids:
+            return {}
+        costs = self._fresh_costs(query)
+        slots = self._matrix.slot
+        return {s: float(costs[slots(s)]) for s in ids}
 
     def estimate_vector(self, query: wl.Query) -> np.ndarray:
         """All registered states' c(s, q) as one float64 per-slot vector
@@ -170,7 +201,7 @@ class _RegistryMixin:
         costs = self._primed_costs(query)
         if costs is not None:
             return costs
-        return self._matrix.estimate(query.lo, query.hi)
+        return self._fresh_costs(query)
 
 
 class InMemoryBackend(_RegistryMixin):
@@ -293,7 +324,7 @@ class InMemoryBackend(_RegistryMixin):
         m = self._matrix
         costs = self._primed_costs(query)
         if costs is None:
-            costs = m.estimate(query.lo, query.hi)
+            costs = self._fresh_costs(query)
             out = {s: float(costs[m.slot(s)]) for s in state_ids}
         else:
             out = self._primed_dict(costs, state_ids)
@@ -314,7 +345,7 @@ class InMemoryBackend(_RegistryMixin):
         if (primed is not None and primed[0] is query
                 and primed[1] == version):
             return primed[2]
-        costs = m.estimate(query.lo, query.hi)
+        costs = self._fresh_costs(query)
         shadow = self.shadow_slot(version)
         if shadow >= 0:
             self._serve_memo = (query, float(costs[shadow]))

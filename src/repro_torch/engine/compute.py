@@ -5,8 +5,9 @@ candidate states, cost vectors over the R-TBS sample, serving — reduces to
 the interval-overlap *scan matrix* over C columns.  This module computes it
 where the zone maps live and hands it back to the host:
 
-* :func:`scan_matrix` / :func:`masked_overlap`: one table's (Q, P) scan,
-  the pruning kernel (:mod:`repro_torch.kernels.pruning`);
+* :func:`scan_matrix` / :func:`masked_overlap` / :func:`block_overlap`:
+  one table's (Q, P) scan, the pruning kernel
+  (:mod:`repro_torch.kernels.pruning`);
 * :func:`fleet_scan_matrix`: every tenant's query against its own packed
   plane, one fleet-scan launch per frame
   (:mod:`repro_torch.kernels.fleet_scan`);
@@ -22,7 +23,9 @@ where the zone maps live and hands it back to the host:
 On a CUDA device each is the hand-written kernel, which compares in float64
 and is therefore exact on every input; on the CPU it is the kernel's plain
 PyTorch version.  Query bounds arrive as host arrays and go over in one
-copy per call; the bool scan comes back in one copy, and every caller
+copy per call (:func:`block_overlap` takes them already on the device, a
+row slice of a run's stacked bounds); the bool scan comes back in one
+copy, and every caller
 reduces it on the host with the same numpy einsum as the reference
 package, so costs are bit-identical on both devices.
 """
@@ -75,12 +78,27 @@ def masked_overlap(mins: torch.Tensor, maxs: torch.Tensor, q_lo: np.ndarray,
     ``(S * P, C)`` without a copy (a leading-axis slice of a contiguous
     plane is).
     """
+    bounds = _bounds(q_lo[None], q_hi[None], mins.device)
+    return block_overlap(mins, maxs, bounds[0], bounds[1])[0]
+
+
+def block_overlap(mins: torch.Tensor, maxs: torch.Tensor, q_lo: torch.Tensor,
+                  q_hi: torch.Tensor) -> np.ndarray:
+    """A block of queries against a ``(..., P, C)`` plane -> host bool
+    ``(B, ..., P)``, C-contiguous.
+
+    ``q_lo``/``q_hi`` are (B, C) float64 tensors on the plane's device,
+    read in place (a row slice of a larger bounds tensor is); the plane is
+    flattened into partition rows as in :func:`masked_overlap`.  One
+    launch, one copy back; row ``b`` of the result equals
+    :func:`masked_overlap` on query ``b``.
+    """
     lead = mins.shape[:-1]
     rows = int(np.prod(lead, dtype=np.int64))
     flat_min = mins.view(rows, mins.shape[-1])
     flat_max = maxs.view(rows, maxs.shape[-1])
-    out = scan_matrix(q_lo[None], q_hi[None], flat_min, flat_max)
-    return out.reshape(lead)
+    out = pruning.scan_matrix(q_lo, q_hi, flat_min, flat_max)
+    return out.cpu().numpy().reshape((len(q_lo),) + tuple(lead))
 
 
 def fleet_scan_matrix(q_lo: np.ndarray, q_hi: np.ndarray, mins: torch.Tensor,

@@ -4,11 +4,14 @@
 single query — decision (policy), physical reorganization (backend, with the
 paper's §VI-D5 Δ-delay between charging a reorg and the swap taking effect),
 and serving — and returns a :class:`StepResult`.  ``run(stream)`` produces a
-:class:`repro_torch.core.oreo.RunResult` trace; when the backend supports
-block serving it pre-stacks the stream's query bounds and evaluates serve
-costs in blocks between layout swaps (the decision loop stays strictly
-per-query), which is bit-identical to stepping because decisions never
-depend on realized serve costs.
+:class:`repro_torch.core.oreo.RunResult` trace.  It stacks the stream's
+query bounds once and hands them to the backend as a lookahead, so the
+policies' estimates are scanned a block of queries per launch between
+plane changes (``step`` scans per query); when the backend supports block
+serving it also evaluates serve costs in blocks between layout swaps.  The
+decision loop stays strictly per-query and both are bit-identical to
+stepping: a block row is consumed only while the plane is unchanged, and
+decisions never depend on realized serve costs.
 """
 from __future__ import annotations
 
@@ -282,16 +285,25 @@ class LayoutEngine:
             serve_seconds=self._serve_seconds,
         )
 
+    def _open_lookahead(self, queries, q_lo, q_hi):
+        """The backend's lookahead over ``queries``, or None if it has
+        none (see ``_RegistryMixin.open_lookahead``)."""
+        open_ = getattr(self.backend, "open_lookahead", None)
+        return open_(queries, q_lo, q_hi) if callable(open_) else None
+
     def run(self, stream: wl.WorkloadStream, name: Optional[str] = None,
             batch_serve: Optional[bool] = None) -> _oreo.RunResult:
         """Step every query of ``stream`` and return the trace.
 
-        When the backend exposes ``serve_block`` (``batch_serve=None`` auto-
-        detects; pass False to force the stepwise loop), serve costs are
-        evaluated in blocks of consecutive queries served by the same
-        physical layout: the per-query decision loop runs unchanged, serves
-        are deferred, and each block is flushed right before a layout swap
-        takes effect.  The resulting trace is bit-identical to stepping.
+        The stream's bounds go to the backend as a lookahead (when it takes
+        one): each estimate is its query's row of a block scan, valid until
+        the next state registration or deregistration.  When the backend
+        exposes ``serve_block`` (``batch_serve=None`` auto-detects; pass
+        False to force the stepwise loop), serve costs are evaluated in
+        blocks of consecutive queries served by the same physical layout:
+        the per-query decision loop runs unchanged, serves are deferred,
+        and each block is flushed right before a layout swap takes effect.
+        The resulting trace is bit-identical to stepping.
         """
         queries = list(stream)
         has_block = callable(getattr(self.backend, "serve_block", None))
@@ -309,17 +321,31 @@ class LayoutEngine:
         elif batch_serve and not has_block:
             raise ValueError(
                 "batch_serve=True requires a backend with serve_block")
-        if not batch_serve:
-            for query in queries:
-                self.step(query)
-            return self.result(name)
         if not queries:
             return self.result(name)
-        self.start()
         q_lo, q_hi = wl.stack_queries(queries)
+        ahead = self._open_lookahead(queries, q_lo, q_hi)
+        try:
+            if batch_serve:
+                self._run_blocks(queries, q_lo, q_hi, ahead)
+            else:
+                for k, query in enumerate(queries):
+                    if ahead is not None:
+                        ahead.cursor = k
+                    self.step(query)
+        finally:
+            if ahead is not None:
+                self.backend.close_lookahead()
+        return self.result(name)
+
+    def _run_blocks(self, queries, q_lo, q_hi, ahead) -> None:
+        """``run``'s loop with serve costs flushed in blocks."""
+        self.start()
         costs = np.empty(len(queries))
         block = 0
         for k, query in enumerate(queries):
+            if ahead is not None:
+                ahead.cursor = k
             i = self._index
             t0 = time.perf_counter()
             decision = self.policy.decide(i, query, self.backend)
@@ -347,4 +373,3 @@ class LayoutEngine:
         costs[block:] = self.backend.serve_block(q_lo[block:], q_hi[block:])
         self._serve_seconds += time.perf_counter() - ts
         self._query_costs.extend(float(c) for c in costs)
-        return self.result(name)

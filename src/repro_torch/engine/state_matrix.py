@@ -13,6 +13,11 @@ partitions hold [+inf, -inf] bounds and are never scanned.  The
 row-weighted reduction runs through the same numpy einsum as the reference
 package (the row counts live on the host for that), so estimates are
 bit-identical to ``eval_cost_states`` and per-state ``eval_cost``.
+
+Block estimates: :meth:`StateMatrix.scan_block` scores a block of queries
+against the plane in one launch, and :class:`BlockEstimates` (a run's
+lookahead, opened by ``LayoutEngine.run``) hands out its rows one query at
+a time while the plane stays at the version the block was scanned at.
 """
 from __future__ import annotations
 
@@ -222,6 +227,15 @@ class StateMatrix:
         return compute.masked_overlap(self._mins[:n], self._maxs[:n],
                                       q_lo, q_hi)
 
+    def scan_block(self, q_lo: torch.Tensor, q_hi: torch.Tensor) -> np.ndarray:
+        """(B, n, P_cap) host bool scan of a block of queries: (B, C) bounds
+        on the plane's device (read in place) against the plane's
+        ``(n * P_cap, C)`` view, in one launch and one copy back.  Each
+        row is C-contiguous, as :meth:`reduce_scanned` needs."""
+        n = self._n
+        return compute.block_overlap(self._mins[:n], self._maxs[:n],
+                                     q_lo, q_hi)
+
     def reduce_scanned(self, scanned: np.ndarray) -> np.ndarray:
         """Row-weighted reduction of an (n, P_cap) scan matrix to (n,) costs.
 
@@ -260,3 +274,76 @@ class StateMatrix:
         costs = self.estimate(q_lo, q_hi)
         slots = self._slots
         return {s: float(costs[slots[s]]) for s in ids}
+
+
+class BlockEstimates:
+    """A run's lookahead: its queries' estimates scanned a block at a time.
+
+    Holds the stream's queries and their stacked bounds, copied to the
+    plane's device once.  The engine moves :attr:`cursor` to the query it
+    is deciding; :meth:`costs` then gives that query's per-slot costs from
+    the cached block when the block was scanned at the plane's current
+    :attr:`StateMatrix.version`, and otherwise scans a new block of
+    :attr:`rows` queries from the cursor on against the current plane.
+    Every register and deregister bumps the version, so a row scanned
+    against an older plane is never consumed.  Each row goes through
+    :meth:`StateMatrix.reduce_scanned`, so its costs are bit-identical to
+    :meth:`StateMatrix.estimate` on that query.
+    """
+
+    #: Queries per block scan.  A plane change discards the rest of the
+    #: block (a candidate lands every ``gen_every`` = 100 queries under
+    #: OREO and Regret; MTS Optimal's plane changes only at its moves);
+    #: ``chip_smoke.py`` measures 64 and 1,024 beside it on OREO's stream.
+    rows = 256
+
+    def __init__(self, queries: Sequence, q_lo: np.ndarray, q_hi: np.ndarray,
+                 device: torch.device):
+        self.queries = queries
+        bounds = torch.as_tensor(np.stack([q_lo, q_hi]), dtype=torch.float64,
+                                 device=device)
+        self._lo, self._hi = bounds[0], bounds[1]
+        #: Position in :attr:`queries` of the query being decided.
+        self.cursor = 0
+        self._block: Optional[tuple] = None    # (start, version, scan)
+        self._used = 0                         # distinct rows consumed
+        self._last = -1
+        #: Block scans made, and scanned rows never consumed.
+        self.blocks = 0
+        self.rows_discarded = 0
+
+    def covers(self, query) -> bool:
+        """True when ``query`` is the query at the cursor."""
+        k = self.cursor
+        return k < len(self.queries) and self.queries[k] is query
+
+    def _drop(self) -> None:
+        if self._block is not None:
+            self.rows_discarded += len(self._block[2]) - self._used
+            self._block = None
+
+    def costs(self, matrix: StateMatrix) -> np.ndarray:
+        """Per-slot costs of the query at the cursor, in slot order."""
+        k = self.cursor
+        block = self._block
+        if (block is not None and block[1] == matrix.version
+                and block[0] <= k < block[0] + len(block[2])):
+            scan = block[2][k - block[0]]
+        else:
+            self._drop()
+            if len(matrix) == 0:
+                return np.zeros(0)
+            stop = min(k + self.rows, len(self.queries))
+            scan = matrix.scan_block(self._lo[k:stop], self._hi[k:stop])
+            self._block = (k, matrix.version, scan)
+            self.blocks += 1
+            self._used, self._last = 0, -1
+            scan = scan[0]
+        if k != self._last:
+            self._used += 1
+            self._last = k
+        return matrix.reduce_scanned(scan)
+
+    def close(self) -> None:
+        """Count the last block's unconsumed rows and release it."""
+        self._drop()

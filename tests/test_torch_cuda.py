@@ -99,6 +99,106 @@ def test_kernel_matches_plain(cuda_device, q, p, c, pad):
     assert np.array_equal(got.cpu().numpy(), plain(lo, hi, mins, maxs))
 
 
+def nan_inf_zone_maps(rng, mins, maxs):
+    """NaN and +-inf entries in zone maps (a NaN bound fails its compare,
+    an infinite one passes or fails as numpy says)."""
+    mins, maxs = mins.copy(), maxs.copy()
+    for a, v, share in ((mins, np.nan, 0.03), (maxs, np.nan, 0.03),
+                        (mins, -np.inf, 0.05), (maxs, np.inf, 0.05)):
+        a[rng.random(a.shape) < share] = v
+    return mins, maxs
+
+
+@pytest.mark.parametrize("path", [1, 2])
+@pytest.mark.parametrize("q,p,c,pad,lead", [
+    (1, 288, 32, 0, 0), (1, 37, 5, 2, 3), (8, 300, 33, 0, 0),
+    (64, 288, 32, 3, 7), (256, 288, 32, 0, 0), (1024, 288, 32, 1, 5),
+    (1000, 37, 70, 1, 3), (33, 65, 1, 0, 0), (16, 40, 0, 0, 0),
+    (257, 31, 64, 2, 1)])
+def test_each_tile_matches_plain(cuda_device, path, q, p, c, pad, lead):
+    """Each forced tile, bitwise, on NaN and +-inf zone maps, a row-strided
+    plane and query bounds that are a row slice of a wider tensor."""
+    rng = np.random.default_rng(q * 7 + p + c + path)
+    lo, hi, mins, maxs = operands(rng, q, p, c)
+    mins, maxs = nan_inf_zone_maps(rng, mins, maxs)
+    bounds = torch.zeros((2, q + lead + 2, c + pad), dtype=torch.float64,
+                         device=cuda_device)
+    bounds[0, lead:lead + q, :c] = torch.as_tensor(lo, device=cuda_device)
+    bounds[1, lead:lead + q, :c] = torch.as_tensor(hi, device=cuda_device)
+    plane = torch.zeros((2, p, c + pad), dtype=torch.float64,
+                        device=cuda_device)
+    plane[0, :, :c] = torch.as_tensor(mins, device=cuda_device)
+    plane[1, :, :c] = torch.as_tensor(maxs, device=cuda_device)
+    before = pruning.scan_matrix.launches
+    got = pruning.scan_matrix(bounds[0, lead:lead + q, :c],
+                              bounds[1, lead:lead + q, :c], plane[0, :, :c],
+                              plane[1, :, :c], path=path)
+    torch.cuda.synchronize()
+    assert pruning.scan_matrix.launches == before + 1
+    assert np.array_equal(got.cpu().numpy(), plain(lo, hi, mins, maxs))
+
+
+def test_the_kernel_chooses_its_tile_from_the_operands(cuda_device):
+    # The row tile while Q x ceil(P / 64) row blocks stay at most 512.
+    assert [pruning.chosen_path(q, 288, 32) for q in (1, 102, 103, 256)] == \
+        [1, 1, 2, 2]
+    assert [pruning.chosen_path(q, 32, 32) for q in (200, 512, 513)] == \
+        [1, 1, 2]
+    q = torch.zeros((4, 3), dtype=torch.float64, device=cuda_device)
+    before = pruning.scan_matrix.launches
+    with pytest.raises(ValueError, match="path"):
+        pruning.scan_matrix(q, q, q, q, path=3)
+    assert pruning.scan_matrix.launches == before
+
+
+def test_block_run_on_the_card_equals_step_loop_and_cpu(cuda_device):
+    """run() scores estimates a block per launch, step() one per launch:
+    equal traces, and far fewer launches for run()."""
+    rng = np.random.default_rng(2)
+    table = rng.uniform(0, 100, size=(20_000, 8))
+    stream = core.generate_workload(core.make_templates(4, 8, rng),
+                                    table.min(0), table.max(0),
+                                    total_queries=600, seed=1,
+                                    segment_length=(150, 250))
+    traces, launches = {}, {}
+    for where, dev, mode in (("card", cuda_device, "run"),
+                             ("card", cuda_device, "step"),
+                             ("cpu", torch.device("cpu"), "run")):
+        data = torch.as_tensor(table, device=dev)
+        for method in ("OREO", "MTS Optimal"):
+            gen = core.make_generator("qdtree")
+            if method == "OREO":
+                policy = engine.OreoPolicy(
+                    data, core.build_default_layout(0, data, 16), gen,
+                    core.OreoConfig(alpha=20.0, seed=3, manager=core.
+                                    LayoutManagerConfig(target_partitions=16)))
+            else:
+                policy = engine.MTSOptimalPolicy(data, stream, gen, 20.0,
+                                                 target_partitions=16)
+            eng = engine.LayoutEngine(policy, engine.InMemoryBackend(data))
+            before = pruning.scan_matrix.launches
+            if mode == "run":
+                res = eng.run(stream)
+            else:
+                for q in stream:
+                    eng.step(q)
+                res = eng.result()
+            traces[where, mode, method] = res
+            launches[where, mode, method] = (pruning.scan_matrix.launches
+                                             - before)
+    for method in ("OREO", "MTS Optimal"):
+        want = traces["cpu", "run", method]
+        for mode in ("run", "step"):
+            got = traces["card", mode, method]
+            assert np.array_equal(got.query_costs, want.query_costs)
+            assert got.reorg_indices == want.reorg_indices
+            assert np.array_equal(got.state_seq, want.state_seq)
+        assert launches["cpu", "run", method] == 0
+        assert launches["card", "step", method] >= len(stream)
+        assert (4 * launches["card", "run", method]
+                < launches["card", "step", method])
+
+
 def test_compute_and_state_matrix_reach_the_kernel(cuda_device):
     rng = np.random.default_rng(1)
     lo, hi, mins, maxs = operands(rng, 3, 40, 6)
