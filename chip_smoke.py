@@ -25,7 +25,14 @@ Phases, each printing JSON lines:
    the decision loop's block shapes (64, 256 and 1,024 queries x 288 x
    32, the main path's ``run`` estimates), at Q = 1 (``step``), with query
    bounds sliced from a larger tensor, a row-strided plane and NaN and
-   +-inf zone maps, beside an empty launch's device time.  Scans,
+   +-inf zone maps, beside an empty launch's device time.  The fleet
+   kernels (one shared-memory tile, ``csrc/fleet_tile.cuh``) run at both
+   fleet cells' passes and the other ``FLEET_SHAPES`` (NaN bounds, 70,000
+   tenants, the column limit, slots past one tile, a freq-only launch of
+   1,000 window rows, no slots) on the path the kernel chooses and on
+   each forced one (one or four slots a thread), with each path's device
+   time at the two passes; ``cost`` must also equal itself bitwise across
+   two launches.  Scans,
    ``freq``, move scores and Z-order keys and routes (the TPU kernel's
    float32 lane at its bench
    shape 1,000,000 x 3; the layout generator's float64 lane on the
@@ -823,29 +830,53 @@ def plane_view(device, mins, maxs, c_pad: int = 0, t_step: int = 1):
     return wmin[::t_step, ..., :c], wmax[::t_step, ..., :c]
 
 
-#: (name, B, T, S, P, C, W, c_pad, t_step).  The first two are the main
-#: paths' passes, whose plane shapes the cells report: fleet64-sf1-threshold
-#: (1024 // 64 = 16 frames; T_cap 128, because the plane's growth schedule
-#: doubles the tenant axis when the state axis grows; S_cap 12 = 8 layouts
-#: + the serving shadow; P 8; C 10) and fleet16-sf1-oreo-k1 (256 // 16 =
-#: 16 frames; T_cap 32, S_cap 8, P 16, C 8).
+#: (name, B, T, S, P, C, W, c_pad, t_step, nan).  The first two are the
+#: main paths' passes, whose plane shapes the cells report:
+#: fleet64-sf1-threshold (1024 // 64 = 16 frames; T_cap 128, because the
+#: plane's growth schedule doubles the tenant axis when the state axis
+#: grows; S_cap 12 = 8 layouts + the serving shadow; P 8; C 10) and
+#: fleet16-sf1-oreo-k1 (256 // 16 = 16 frames; T_cap 32, S_cap 8, P 16,
+#: C 8).  ``nan`` puts NaN into 5 % of the zone-map and query bounds.
+#: The kernels' tile holds 96 KB of zone maps (152 slots at C 40), and
+#: takes up to ``decision_fused_max_columns()`` columns (the ``None``
+#: width below).
 FLEET_SHAPES = [
-    ("fleet64 pass", 16, 128, 12, 8, 10, 0, 0, 1),
-    ("fleet16 pass", 16, 32, 8, 16, 8, 0, 0, 1),
-    ("fleet64 pass + 80-query window", 16, 128, 12, 8, 10, 80, 0, 1),
-    ("ragged", 3, 17, 3, 130, 7, 5, 0, 1),
-    ("partitions past one tile", 2, 3, 2, 300, 3, 2, 0, 1),
-    ("bounds past 48 KB of shared memory", 2, 4, 2, 33, 100, 3, 0, 1),
-    ("zero columns", 2, 3, 4, 40, 0, 2, 0, 1),
-    ("one frame, one window row", 1, 5, 3, 9, 4, 1, 0, 1),
-    ("strided plane view", 4, 6, 3, 10, 5, 3, 2, 2),
+    ("fleet64 pass", 16, 128, 12, 8, 10, 0, 0, 1, False),
+    ("fleet16 pass", 16, 32, 8, 16, 8, 0, 0, 1, False),
+    ("fleet64 pass + 80-query window", 16, 128, 12, 8, 10, 80, 0, 1, False),
+    ("ragged", 3, 17, 3, 130, 7, 5, 0, 1, False),
+    ("partitions past one tile", 2, 3, 2, 300, 3, 2, 0, 1, False),
+    ("bounds past 48 KB of shared memory", 2, 4, 2, 33, 100, 3, 0, 1, False),
+    ("zero columns", 2, 3, 4, 40, 0, 2, 0, 1, False),
+    ("one frame, one window row", 1, 5, 3, 9, 4, 1, 0, 1, False),
+    ("strided plane view", 4, 6, 3, 10, 5, 3, 2, 2, False),
+    ("NaN zone maps and query bounds", 16, 32, 8, 16, 8, 80, 0, 1, True),
+    ("NaN, strided, ragged", 3, 17, 3, 130, 7, 5, 2, 2, True),
+    ("tenants past 65,535", 2, 70_000, 1, 4, 2, 3, 0, 1, False),
+    ("columns at the limit", 2, 2, 2, 5, None, 2, 0, 1, False),
+    ("S * P past one tile", 3, 2, 3, 700, 40, 3, 0, 1, False),
+    ("S * P past one tile, strided", 2, 3, 2, 650, 40, 2, 1, 2, False),
+    ("freq only, W 1,000", 0, 1, 2, 16, 8, 1_000, 0, 1, False),
+    ("no slots", 2, 4, 2, 0, 3, 2, 0, 1, False),
 ]
 
 
-def time_fleet_kernels(device, lo, hi, vmin, vmax, reps: int = 200) -> dict:
+def with_nans(rng, *arrays) -> None:
+    """NaN into 5 % of each array's entries, in place."""
+    for a in arrays:
+        a[rng.random(a.shape) < 0.05] = float("nan")
+
+
+#: The fleet kernels' forced paths, by the key suffix their times get.
+FLEET_PATHS = {1: "one_slot", 2: "four_slots"}
+
+
+def time_fleet_kernels(device, lo, hi, vmin, vmax, reps: int = 200,
+                       by_path: bool = False) -> dict:
     """CUDA-event ms per call at one pass shape, scan only (what the main
     paths launch): each kernel raw (its ``ctypes`` launch) and through its
-    wrapper, and its plain version; fleet_scan for one frame."""
+    wrapper, and its plain version; fleet_scan for one frame.  With
+    ``by_path`` also each forced path's raw and device ms."""
     import torch
     from repro_torch.kernels import _backend
     from repro_torch.kernels.decision_fused import decision_fused, ref as dref
@@ -860,18 +891,18 @@ def time_fleet_kernels(device, lo, hi, vmin, vmax, reps: int = 200) -> dict:
     fn = fleet_scan._kernel()
     lo0, hi0 = lo[0].contiguous(), hi[0].contiguous()
 
-    def raw_fused():
+    def raw_fused(path=0):
         lib.decision_fused(lo.data_ptr(), hi.data_ptr(), vmin.data_ptr(),
                            vmax.data_ptr(), vmin.stride(0), vmin.stride(1),
                            vmin.stride(2), None, None, None, None,
                            scan.data_ptr(), None, None, b, t, s, p, c, 0,
-                           stream)
+                           path, stream)
 
-    def raw_fleet():
+    def raw_fleet(path=0):
         fn(lo0.data_ptr(), hi0.data_ptr(), fmin.data_ptr(), fmax.data_ptr(),
-           fmin.stride(0), fmin.stride(1), out.data_ptr(), t, s * p, c,
+           fmin.stride(0), fmin.stride(1), out.data_ptr(), t, s * p, c, path,
            stream)
-    return {
+    times = {
         "decision_fused": {
             "ms": cuda_time_ms(raw_fused, reps),
             "device_ms": device_ms(raw_fused, reps, "decision_fused_kernel"),
@@ -888,6 +919,14 @@ def time_fleet_kernels(device, lo, hi, vmin, vmax, reps: int = 200) -> dict:
             "plain_ms": cuda_time_ms(lambda: fref.scan_fleet(
                 lo0, hi0, fmin, fmax), reps),
             **plane_bound(1, t, s * p, c)}}
+    for path, key in FLEET_PATHS.items() if by_path else ():
+        for kernel, raw in (("decision_fused", raw_fused),
+                            ("fleet_scan", raw_fleet)):
+            times[kernel][f"ms_{key}"] = cuda_time_ms(
+                lambda: raw(path), reps)
+            times[kernel][f"device_ms_{key}"] = device_ms(
+                lambda: raw(path), reps, f"{kernel}_kernel")
+    return times
 
 
 def phase_fleet_kernels(device) -> dict:
@@ -900,17 +939,42 @@ def phase_fleet_kernels(device) -> dict:
     rng = np.random.default_rng(1)
     errs = {"fleet_scan": 0.0, "decision_fused": 0.0}
     main = None
-    for name, b, t, s, p, c, w, c_pad, t_step in FLEET_SHAPES:
+    max_columns = decision_fused._lib().decision_fused_max_columns()
+    for name, b, t, s, p, c, w, c_pad, t_step, nan in FLEET_SHAPES:
+        c = max_columns if c is None else c
         lo, hi, mins, maxs, rows, inv, w_lo, w_hi = plane_operands(
             rng, b, t, s, p, c, w)
+        if nan:
+            with_nans(rng, lo, hi, mins, maxs, w_lo, w_hi)
         vmin, vmax = plane_view(device, mins, maxs, c_pad, t_step)
         dev = [torch.as_tensor(a, device=device)
                for a in (lo, hi, rows, inv, w_lo, w_hi)]
         window = dev[4:] if w else [None, None]
-        got = decision_fused.fused_decision(dev[0], dev[1], vmin, vmax,
-                                            dev[2], dev[3], *window)
         want = dref.fused_decision(dev[0], dev[1], vmin, vmax, dev[2],
                                    dev[3], *window)
+        for path in FLEET_PATHS:       # each forced path, bitwise
+            forced = decision_fused.fused_decision(
+                dev[0], dev[1], vmin, vmax, dev[2], dev[3], *window,
+                path=path)
+            frames = [fleet_scan.scan_fleet(dev[0][k], dev[1][k],
+                                            vmin.flatten(1, 2),
+                                            vmax.flatten(1, 2), path=path)
+                      for k in range(b)]
+            torch.cuda.synchronize()
+            if not (torch.equal(forced[0], want[0])
+                    and (not w or torch.equal(forced[2].view(torch.int64),
+                                              want[2].view(torch.int64)))
+                    and torch.allclose(forced[1], want[1], rtol=1e-12,
+                                       atol=0)
+                    and all(torch.equal(g.view(t, s, p), want[0][k])
+                            for k, g in enumerate(frames))):
+                raise AssertionError(f"fleet kernels on path {path} "
+                                     f"disagree with their plain versions "
+                                     f"at {name}")
+        got = decision_fused.fused_decision(dev[0], dev[1], vmin, vmax,
+                                            dev[2], dev[3], *window)
+        again = decision_fused.fused_decision(dev[0], dev[1], vmin, vmax,
+                                              dev[2], dev[3], *window)
         per_frame = [fleet_scan.scan_fleet(dev[0][k], dev[1][k],
                                            vmin.flatten(1, 2),
                                            vmax.flatten(1, 2))
@@ -929,9 +993,13 @@ def phase_fleet_kernels(device) -> dict:
         fleet_err = max((int((g.int() - h.int()).abs().max())
                          for g, h in zip(per_frame, plain_frames)
                          if g.numel()), default=0)
-        cost_ok = torch.allclose(got[1], want[1], rtol=1e-12, atol=0)
-        ok = (torch.equal(got[0], want[0]) and cost_ok
-              and (not w or torch.equal(got[2], want[2]))
+        cost_ok = (torch.allclose(got[1], want[1], rtol=1e-12, atol=0)
+                   and torch.equal(got[1].view(torch.int64),
+                                   again[1].view(torch.int64)))
+        freq_ok = not w or torch.equal(got[2].view(torch.int64),
+                                       want[2].view(torch.int64))
+        ok = (torch.equal(got[0], want[0]) and cost_ok and freq_ok
+              and torch.equal(again[0], got[0])
               and all(torch.equal(g, h)
                       for g, h in zip(per_frame, plain_frames))
               and all(torch.equal(g.view(t, s, p), got[0][k])
@@ -949,7 +1017,8 @@ def phase_fleet_kernels(device) -> dict:
         errs["decision_fused"] = max(errs["decision_fused"], scan_err,
                                      cost_err, freq_err)
         if name in ("fleet64 pass", "fleet16 pass"):
-            times = time_fleet_kernels(device, dev[0], dev[1], vmin, vmax)
+            times = time_fleet_kernels(device, dev[0], dev[1], vmin, vmax,
+                                       by_path=True)
             row.update({f"{k}_{m}": v for k, d in times.items()
                         for m, v in d.items()})
             if main is None:
@@ -1216,7 +1285,7 @@ def phase_move_score_kernel(device) -> dict:
                     pmax.data_ptr(), pmin.stride(0), pmin.stride(1),
                     pmin.stride(2), None, None, dlo.data_ptr(),
                     dhi.data_ptr(), None, None, freq.data_ptr(), 0, 1, s,
-                    p, c, q, stream)
+                    p, c, q, 0, stream)
             fused = decision_fused.fused_decision(
                 frames, frames, pmin, pmax, w_lo=dlo, w_hi=dhi,
                 emit_scan=False)[2]
@@ -1227,6 +1296,8 @@ def phase_move_score_kernel(device) -> dict:
                                      "version")
             row["decision_fused_freq_only"] = {
                 "ms": cuda_time_ms(raw_fused, 200),
+                "device_ms": device_ms(raw_fused, 200,
+                                       "decision_fused_kernel"),
                 "wrapper_ms": cuda_time_ms(
                     lambda: decision_fused.fused_decision(
                         frames, frames, pmin, pmax, w_lo=dlo, w_hi=dhi,

@@ -14,148 +14,50 @@
 // fused_decision_pallas).  That kernel casts to float32, so its caller
 // guards it and falls back to numpy whenever the plane is not
 // float32-exact, which zone maps of float64 data almost never are.  This
-// one compares in float64, is exact on every input (+-inf included) and
-// needs no guard; `freq` is count / W, exact; `cost` sums each (b, t, s)
-// over P in one fixed order inside one block (no float atomics), so two
-// runs give the same bits.
+// one compares in float64, is exact on every input (+-inf and NaN
+// included) and needs no guard; `freq` is count / W, exact; `cost` sums
+// each (b, t, s) over P in one fixed order inside one block (no float
+// atomics), so two runs give the same bits.
 //
 // Bound: bytes.  It reads the plane (2 TSPC doubles), the frames (2 BTC),
 // the row counts (TSP), the inverse totals (TS) and the window (2 WC) once,
 // and writes BTSP scan bytes, BTS cost doubles and TSP freq doubles: at the
 // fleet cells' shapes tens to hundreds of kilobytes, a fraction of a
-// microsecond at 3.35 TB/s, so a launch costs more than the work.
+// microsecond at 3.35 TB/s, so the body's latency is what a launch costs.
 //
-// Design: simple and right.  One block per (t, s) state, threads over its
-// partitions in tiles of blockDim.x.  A tile's zone-map rows are staged in
-// dynamic shared memory, column-major so that the threads of a warp read
-// consecutive words, and each row is read from device memory once for all
-// B frames and all W window rows: the single read is the point of the TPU
-// kernel.  For every frame each thread ANDs its partition's columns,
-// stopping at the first miss, and writes its scan byte (coalesced along
-// P).  The cost of a frame is a warp-shuffle tree over the tile's
-// partitions, then thread 0 adds the warp sums in warp order to the
-// frame's cost, tile after tile, and scales by the inverse total at the
-// end.  The frame and window bounds are read straight from device memory:
-// every thread of the block reads the same word, an L1 broadcast.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design: one shared-memory tile per tenant (fleet_tile.cuh).  A block
+// stages a tenant's slots, or a chunk of them, and that tenant's frames
+// with one barrier, and each thread ANDs all C columns of four slots (one,
+// below four frames) for a frame and stores four scan bytes at once.
+// `path` forces one or four slots a thread for measurement.  The earlier
+// design took
+// one block per (t, s) state with a thread per partition (8 or 16 of 32
+// lanes working at the fleet cells' shapes) and read each frame's bounds
+// from device memory in an early-exit column loop, a chain of dependent
+// loads per frame: 0.0219 ms of device time at fleet64's pass, 30 times
+// its bound, and 0.057 ms for the planner's freq-only launch, whose two
+// blocks walked the window row by row.
+#include "fleet_tile.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kWarp = 32;
-constexpr int64_t kMaxBlocks = 1 << 20;
-
-__global__ void __launch_bounds__(kMaxThreads)
-decision_fused_kernel(const double* __restrict__ q_lo,
-                      const double* __restrict__ q_hi,
-                      const double* __restrict__ p_min,
-                      const double* __restrict__ p_max, int64_t t_stride,
-                      int64_t s_stride, int64_t p_stride,
-                      const double* __restrict__ rows,
-                      const double* __restrict__ inv_totals,
-                      const double* __restrict__ w_lo,
-                      const double* __restrict__ w_hi,
-                      uint8_t* __restrict__ scan, double* __restrict__ cost,
-                      double* __restrict__ freq, int B, int T, int S, int P,
-                      int C, int W) {
-  extern __shared__ double smem[];
-  const int tp = blockDim.x;                 // partitions per tile
-  double* s_min = smem;                      // [C][tp]
-  double* s_max = smem + (int64_t)C * tp;    // [C][tp]
-  double* s_warp = smem + 2 * (int64_t)C * tp;   // [tp / 32]
-  const int r = threadIdx.x;
-  const int64_t states = (int64_t)T * S;
-  for (int64_t ts = blockIdx.x; ts < states; ts += gridDim.x) {
-    const int64_t t = ts / S;
-    const int64_t s = ts - t * S;
-    const double* base_min = p_min + t * t_stride + s * s_stride;
-    const double* base_max = p_max + t * t_stride + s * s_stride;
-    if (cost != nullptr && r == 0) {
-      for (int b = 0; b < B; ++b) cost[((int64_t)b * T + t) * S + s] = 0.0;
-    }
-    for (int p0 = 0; p0 < P; p0 += tp) {
-      const int pw = min(tp, P - p0);
-      __syncthreads();                       // the last tile's readers are done
-      for (int e = r; e < pw * C; e += tp) {
-        const int pr = e / C, c = e - pr * C;
-        const int64_t off = (int64_t)(p0 + pr) * p_stride + c;
-        s_min[(int64_t)c * tp + pr] = base_min[off];
-        s_max[(int64_t)c * tp + pr] = base_max[off];
-      }
-      __syncthreads();
-      const bool live = r < pw;
-      const int64_t p = p0 + r;
-      if (scan != nullptr || cost != nullptr) {
-        const double row = (cost != nullptr && live) ? rows[ts * P + p] : 0.0;
-        for (int b = 0; b < B; ++b) {
-          const int64_t bt = (int64_t)b * T + t;
-          const double* lo = q_lo + bt * C;
-          const double* hi = q_hi + bt * C;
-          bool keep = live;
-          for (int c = 0; c < C && keep; ++c) {
-            keep = s_min[(int64_t)c * tp + r] <= hi[c] &&
-                   s_max[(int64_t)c * tp + r] >= lo[c];
-          }
-          if (scan != nullptr && live) scan[(bt * S + s) * P + p] = keep ? 1 : 0;
-          if (cost != nullptr) {
-            double v = keep ? row : 0.0;
-            for (int off = kWarp / 2; off > 0; off >>= 1) {
-              v += __shfl_down_sync(0xffffffffu, v, off);
-            }
-            if ((r & (kWarp - 1)) == 0) s_warp[r / kWarp] = v;
-            __syncthreads();
-            if (r == 0) {
-              double sum = 0.0;
-              for (int w = 0; w < tp / kWarp; ++w) sum += s_warp[w];
-              cost[bt * S + s] += sum;
-            }
-            __syncthreads();
-          }
-        }
-      }
-      if (freq != nullptr && live) {
-        int count = 0;
-        for (int w = 0; w < W; ++w) {
-          const double* lo = w_lo + (int64_t)w * C;
-          const double* hi = w_hi + (int64_t)w * C;
-          bool keep = true;
-          for (int c = 0; c < C && keep; ++c) {
-            keep = s_min[(int64_t)c * tp + r] <= hi[c] &&
-                   s_max[(int64_t)c * tp + r] >= lo[c];
-          }
-          count += keep ? 1 : 0;
-        }
-        freq[ts * P + p] = (double)count / (double)W;
-      }
-    }
-    if (cost != nullptr && r == 0) {
-      const double inv = inv_totals[ts];
-      for (int b = 0; b < B; ++b) cost[((int64_t)b * T + t) * S + s] *= inv;
-    }
-  }
-}
-
-// Threads per block (a warp multiple, at most one tile of the partitions)
-// and the dynamic shared memory they need.
-int tile_threads(int P) {
-  const int tp = ((P + kWarp - 1) / kWarp) * kWarp;
-  return tp < kWarp ? kWarp : (tp > kMaxThreads ? kMaxThreads : tp);
-}
-
-size_t smem_bytes(int tp, int C) {
-  return (2 * (size_t)C * tp + tp / kWarp) * sizeof(double);
+template <int K>
+__global__ void __launch_bounds__(fleet_tile::kMaxThreads)
+decision_fused_kernel(const fleet_tile::Args a) {
+  fleet_tile::tile_body<K>(a);
 }
 
 }  // namespace
 
-// The largest column count the kernel takes: one warp-wide tile of bounds
-// must fit in a block's 227 KB of shared memory.
+// The largest column count the kernel takes: a tile of four slots and one
+// row of bounds must fit in a block's 227 KB of shared memory.
 extern "C" int decision_fused_max_columns(void) {
-  return (int)((232448 / sizeof(double) - 1) / (2 * kWarp));
+  return fleet_tile::max_columns();
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue, launching nothing, past the column limit or for a
+// path other than 0 (the plan's choice), 1 (one slot a thread) or 2 (four).
 // T * S must be positive.  Frames (B, T, C), rows (T, S, P), inverse
 // totals (T, S) and window (W, C) are contiguous; the plane has dense
 // columns and the given tenant, state and partition strides.  `rows` and
@@ -168,20 +70,36 @@ extern "C" int decision_fused(const double* q_lo, const double* q_hi,
                               const double* inv_totals, const double* w_lo,
                               const double* w_hi, uint8_t* scan, double* cost,
                               double* freq, int B, int T, int S, int P, int C,
-                              int W, void* stream) {
-  int tp = tile_threads(P);
-  while (tp > kWarp && smem_bytes(tp, C) > 48 * 1024) tp -= kWarp;
-  const size_t smem = smem_bytes(tp, C);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        decision_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int64_t states = (int64_t)T * S;
-  const dim3 grid((unsigned)(states < kMaxBlocks ? states : kMaxBlocks));
-  decision_fused_kernel<<<grid, tp, smem, (cudaStream_t)stream>>>(
-      q_lo, q_hi, p_min, p_max, t_stride, s_stride, p_stride, rows,
-      inv_totals, w_lo, w_hi, scan, cost, freq, B, T, S, P, C, W);
-  return (int)cudaGetLastError();
+                              int W, int path, void* stream) {
+  if (C > fleet_tile::max_columns() || path < 0 || path > 2)
+    return (int)cudaErrorInvalidValue;
+  fleet_tile::Args a = {};
+  a.q_lo = q_lo;
+  a.q_hi = q_hi;
+  a.p_min = p_min;
+  a.p_max = p_max;
+  a.t_stride = t_stride;
+  a.s_stride = s_stride;
+  a.p_stride = p_stride;
+  a.rows = rows;
+  a.inv_totals = inv_totals;
+  a.w_lo = w_lo;
+  a.w_hi = w_hi;
+  a.scan = scan;
+  a.cost = cost;
+  a.freq = freq;
+  a.T = T;
+  a.S = S;
+  a.P = P;
+  a.N = (int64_t)S * P;
+  a.C = C;
+  a.B = B;
+  a.W = W;
+  a.dense = p_stride == C && (S == 1 || s_stride == (int64_t)P * C);
+  const bool frames = B > 0 && (scan != nullptr || cost != nullptr);
+  const fleet_tile::Plan pl = fleet_tile::plan(
+      T, S, P, C, B, W, frames, cost != nullptr, freq != nullptr,
+      fleet_tile::multiprocessors(), path);
+  return fleet_tile::launch(a, pl, decision_fused_kernel<1>,
+                            decision_fused_kernel<4>, (cudaStream_t)stream);
 }

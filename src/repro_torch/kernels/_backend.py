@@ -60,13 +60,15 @@ def to_device(array, device: Union[None, str, torch.device] = None
 
 
 def sources() -> list:
+    """The sources ``nvcc`` compiles, one library each."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def build_dir() -> Path:
-    """The hash-keyed directory the current sources build into."""
+    """The hash-keyed directory the current sources and headers build
+    into."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     root = os.environ.get("REPRO_TORCH_BUILD_DIR")

@@ -12,6 +12,10 @@ block of B query frames (one query per tenant per frame) and the packed
 
 The kernel compares in float64, so ``scan`` and ``freq`` are exact on every
 input; ``cost`` sums over P in one fixed order, so it is deterministic.
+It shares its shared-memory tile with the fleet scan
+(``csrc/fleet_tile.cuh``): a thread takes four slots of a frame (one slot
+below four frames); ``path=1`` (one) or ``path=2`` (four) forces either,
+for measurement, and both take every shape.
 :func:`fused_decision` runs the kernel on CUDA tensors and the plain
 version (:mod:`.ref`) on CPU tensors; there is no fallback from one to the
 other.
@@ -28,9 +32,12 @@ from repro_torch.kernels import _backend
 from . import ref
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
-             + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+             + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
              + [ctypes.c_void_p])
 _INT_MAX = 2 ** 31 - 1
+#: ``path`` values: 0 lets the kernel choose, the others force the slots
+#: a thread takes.
+PATHS = {0: "choose", 1: "one slot a thread", 2: "four slots a thread"}
 
 
 def _lib():
@@ -91,7 +98,7 @@ def fused_decision(q_lo: torch.Tensor, q_hi: torch.Tensor,
                    inv_totals: Optional[torch.Tensor] = None,
                    w_lo: Optional[torch.Tensor] = None,
                    w_hi: Optional[torch.Tensor] = None, *,
-                   emit_scan: bool = True,
+                   emit_scan: bool = True, path: int = 0,
                    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
                               Optional[torch.Tensor]]:
     """(B, T, C) frames x (T, S, P, C) plane -> (scan, cost, freq).
@@ -104,7 +111,12 @@ def fused_decision(q_lo: torch.Tensor, q_hi: torch.Tensor,
     float64 operands on one device.  Frames, rows, totals and window must
     be contiguous; the plane operands need dense columns and share their
     tenant, state and partition strides (a view is read in place).
+    ``path`` is the kernel's thread layout (:data:`PATHS`; 0 = its own
+    choice); the plain version ignores it.
     """
+    if path not in PATHS:
+        raise ValueError(f"fused_decision: path must be one of "
+                         f"{sorted(PATHS)}, got {path!r}")
     emit_cost, emit_freq = rows is not None, w_lo is not None
     if not (emit_scan or emit_cost or emit_freq):
         raise ValueError("fused_decision: nothing to emit")
@@ -156,7 +168,7 @@ def fused_decision(q_lo: torch.Tensor, q_hi: torch.Tensor,
             p_max.data_ptr(), p_min.stride(0), p_min.stride(1),
             p_min.stride(2), ptr(rows), ptr(inv_totals), ptr(w_lo),
             ptr(w_hi), ptr(scan), ptr(cost), ptr(freq), b, t, s, p, c, w,
-            _backend.stream_handle(device))
+            path, _backend.stream_handle(device))
     _backend.check_launch("decision_fused", err)
     fused_decision.launches += 1
     return scan, cost, freq

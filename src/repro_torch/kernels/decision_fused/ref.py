@@ -3,8 +3,11 @@
 Computes the same three products as the CUDA kernel by materializing the
 broadcast tensors directly: the oracle the kernel is held to, and what the
 wrapper runs on CPU tensors.  The scan is a conjunction of comparisons and
-``freq`` a count divided by W, both exact; ``cost`` is a sum over P, whose
-order may differ from the kernel's in the last bits.
+``freq`` a count divided by W, both exact (W is divided as a 0-dim
+tensor: PyTorch's CUDA division turns a Python-number divisor into a
+multiply by its reciprocal, which can miss count / W by an ulp); ``cost``
+is a sum over P, whose order may differ from the kernel's in the last
+bits.
 """
 from __future__ import annotations
 
@@ -46,5 +49,6 @@ def fused_decision(q_lo: torch.Tensor, q_hi: torch.Tensor,
     freq = None
     if w_lo is not None:
         count = _overlap(w_lo[:, None], w_hi[:, None], p_min, p_max).sum(dim=0)
-        freq = count.to(p_min.dtype) / w_lo.shape[0]
+        count = count.to(p_min.dtype)
+        freq = count / count.new_full((), w_lo.shape[0])
     return scan, cost, freq

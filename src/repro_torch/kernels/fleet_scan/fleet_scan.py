@@ -4,7 +4,9 @@ The Hopper counterpart of the TPU kernel ``scan_fleet_pallas``: every
 tenant's query against that tenant's packed ``(N, C)`` plane of
 state-partition slots, for all tenants in one launch.  The kernel compares
 in float64, so it is exact on every input and the scan bits equal the
-numpy reference's.
+numpy reference's.  It is the fused decision kernel's shared-memory tile
+(``csrc/fleet_tile.cuh``) for one frame: one slot a thread unless
+``path=2`` forces four (``path=1`` forces one; both take every shape).
 
 :func:`scan_fleet` runs the kernel on CUDA tensors and the plain version
 (:mod:`.ref`) on CPU tensors; there is no fallback from one to the other.
@@ -22,8 +24,11 @@ from . import ref
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_void_p]
 _INT_MAX = 2 ** 31 - 1
+#: ``path`` values: 0 lets the kernel choose, the others force the slots
+#: a thread takes.
+PATHS = {0: "choose", 1: "one slot a thread", 2: "four slots a thread"}
 
 
 def _kernel():
@@ -60,13 +65,18 @@ def _check(q_lo, q_hi, p_min, p_max) -> None:
 
 
 def scan_fleet(q_lo: torch.Tensor, q_hi: torch.Tensor, p_min: torch.Tensor,
-               p_max: torch.Tensor) -> torch.Tensor:
+               p_max: torch.Tensor, path: int = 0) -> torch.Tensor:
     """(T, C) per-tenant bounds x (T, N, C) plane -> (T, N) bool.
 
     float64 operands on one device.  Query bounds must be contiguous; the
     plane operands need dense columns and share their tenant and slot
     strides (a ``(T, S * P, C)`` view of the fleet plane is read in place).
+    ``path`` is the kernel's thread layout (:data:`PATHS`; 0 = its own
+    choice); the plain version ignores it.
     """
+    if path not in PATHS:
+        raise ValueError(f"scan_fleet: path must be one of {sorted(PATHS)}, "
+                         f"got {path!r}")
     _check(q_lo, q_hi, p_min, p_max)
     if q_lo.device.type == "cpu":
         return ref.scan_fleet(q_lo, q_hi, p_min, p_max)
@@ -86,7 +96,7 @@ def scan_fleet(q_lo: torch.Tensor, q_hi: torch.Tensor, p_min: torch.Tensor,
     with torch.cuda.device(q_lo.device):
         err = _kernel()(q_lo.data_ptr(), q_hi.data_ptr(), p_min.data_ptr(),
                         p_max.data_ptr(), p_min.stride(0), p_min.stride(1),
-                        out.data_ptr(), t, n, c,
+                        out.data_ptr(), t, n, c, path,
                         _backend.stream_handle(q_lo.device))
     _backend.check_launch("fleet_scan", err)
     scan_fleet.launches += 1

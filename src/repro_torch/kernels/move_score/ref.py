@@ -4,7 +4,9 @@ The broadcast ``(Q, S, P, C)`` overlap AND, then a count over the Q window
 rows divided by Q, in float64: the oracle the CUDA kernel is held to, and
 what the wrapper runs on CPU tensors.  The count is an integer and the one
 division is correctly rounded, so the result is exactly numpy's mean of the
-reference's 0/1 scan matrix.
+reference's 0/1 scan matrix.  Q is divided as a 0-dim tensor: PyTorch's
+CUDA division turns a Python-number divisor into a multiply by its
+reciprocal, which can miss count / Q by an ulp.
 """
 from __future__ import annotations
 
@@ -20,4 +22,5 @@ def move_scores(q_lo: torch.Tensor, q_hi: torch.Tensor, p_min: torch.Tensor,
     """
     ov = ((p_min[None] <= q_hi[:, None, None, :])
           & (p_max[None] >= q_lo[:, None, None, :])).all(dim=-1)
-    return ov.sum(dim=0).to(torch.float64) / q_lo.shape[0]
+    count = ov.sum(dim=0).to(torch.float64)
+    return count / count.new_full((), q_lo.shape[0])

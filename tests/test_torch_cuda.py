@@ -313,6 +313,10 @@ def test_fleet_scan_kernel_matches_plain(cuda_device, b, t, s, p, c, c_pad,
     (2, 3, 4, 40, 0, 2, 0, 1),        # no columns
     (1, 5, 3, 9, 4, 1, 0, 1),         # B = 1, W = 1
     (4, 6, 3, 10, 5, 3, 2, 2),        # strided plane view
+    (2, 70_000, 1, 4, 2, 3, 0, 1),    # tenants past a 65,535-block axis
+    (3, 2, 3, 700, 40, 3, 0, 1),      # S * P past one shared-memory tile
+    (2, 3, 2, 650, 40, 2, 1, 2),      # the same, strided
+    (2, 4, 2, 0, 3, 2, 0, 1),         # no slots: costs 0 * inv
 ])
 def test_decision_fused_kernel_matches_plain(cuda_device, b, t, s, p, c, w,
                                              c_pad, t_step):
@@ -359,10 +363,11 @@ def test_fleet_kernels_refuse_cuda_operands_they_cannot_take(cuda_device):
                                       plane[..., ::2], plane[..., ::2])
     with pytest.raises(ValueError):                    # mixed devices
         decision_fused.fused_decision(q, q, plane, plane.cpu())
-    wide = torch.zeros((1, 1, 1, 500), **kw)           # past shared memory
+    c = decision_fused._lib().decision_fused_max_columns() + 1
+    wide = torch.zeros((1, 1, 1, c), **kw)             # past shared memory
     with pytest.raises(ValueError, match="columns"):
-        decision_fused.fused_decision(torch.zeros((1, 1, 500), **kw),
-                                      torch.zeros((1, 1, 500), **kw),
+        decision_fused.fused_decision(torch.zeros((1, 1, c), **kw),
+                                      torch.zeros((1, 1, c), **kw),
                                       wide, wide)
     flat = plane.reshape(3, 10, 8)
     with pytest.raises(ValueError):                    # strided queries
@@ -371,6 +376,168 @@ def test_fleet_kernels_refuse_cuda_operands_they_cannot_take(cuda_device):
     with pytest.raises(ValueError):                    # column stride 2
         fleet_scan.scan_fleet(q[0, :, :4], q[0, :, :4], flat[..., ::2],
                               flat[..., ::2])
+
+
+def with_nans(rng, *arrays):
+    for a in arrays:
+        a[rng.random(a.shape) < 0.05] = np.nan
+
+
+def fleet_kernels_against_plain(device, rng, b, t, s, p, c, w, c_pad=0,
+                                t_step=1, nan=False):
+    """Both fleet kernels on one plane: the fused kernel's three outputs
+    and a fleet-scan launch per frame, against the plain versions."""
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.decision_fused import ref as dref
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.fleet_scan import ref as fref
+    lo, hi, mins, maxs, rows, inv, w_lo, w_hi = plane_operands(
+        rng, b, t, s, p, c, window=w)
+    if nan:
+        with_nans(rng, lo, hi, mins, maxs, w_lo, w_hi)
+    vmin, vmax = plane_on(device, mins, maxs, c_pad, t_step)
+    dev = [torch.as_tensor(a, device=device)
+           for a in (lo, hi, rows, inv, w_lo, w_hi)]
+    scan, cost, freq = decision_fused.fused_decision(
+        dev[0], dev[1], vmin, vmax, dev[2], dev[3], dev[4], dev[5])
+    frames = [fleet_scan.scan_fleet(dev[0][k], dev[1][k], vmin.flatten(1, 2),
+                                    vmax.flatten(1, 2)) for k in range(b)]
+    torch.cuda.synchronize()
+    cpu = [torch.as_tensor(a) for a in (lo, hi, mins, maxs, rows, inv, w_lo,
+                                        w_hi)]
+    w_scan, w_cost, w_freq = dref.fused_decision(*cpu)
+    assert torch.equal(scan.cpu(), w_scan)
+    assert torch.allclose(cost.cpu(), w_cost, rtol=1e-12, atol=0)
+    assert torch.equal(freq.cpu(), w_freq)
+    for k, got in enumerate(frames):
+        want = fref.scan_fleet(cpu[0][k], cpu[1][k],
+                               cpu[2].reshape(t, s * p, c),
+                               cpu[3].reshape(t, s * p, c))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b,t,s,p,c,w,c_pad,t_step", [
+    (16, 32, 8, 16, 8, 80, 0, 1),     # fleet16 pass, with a window
+    (16, 128, 12, 8, 10, 80, 0, 1),   # fleet64 pass, with a window
+    (3, 17, 3, 130, 7, 5, 2, 2),      # ragged, strided
+])
+def test_fleet_kernels_match_plain_on_nan_bounds(cuda_device, b, t, s, p, c,
+                                                 w, c_pad, t_step):
+    rng = np.random.default_rng(b + t + p)
+    fleet_kernels_against_plain(cuda_device, rng, b, t, s, p, c, w, c_pad,
+                                t_step, nan=True)
+
+
+def test_fleet_kernels_take_columns_up_to_the_tile_limit(cuda_device):
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.fleet_scan import ref as fref
+    c = decision_fused._lib().decision_fused_max_columns()
+    assert c >= 453                   # the earlier design's limit
+    rng = np.random.default_rng(9)
+    fleet_kernels_against_plain(cuda_device, rng, 2, 2, 2, 5, c, 2)
+    # Past the tile's limit the fleet scan still takes the rows (its
+    # earlier design had none); the fused kernel refuses them.
+    lo, hi, mins, maxs, *_ = plane_operands(rng, 1, 3, 2, 5, c + 7)
+    q = [torch.as_tensor(a[0], device=cuda_device) for a in (lo, hi)]
+    vmin, vmax = plane_on(cuda_device, mins, maxs)
+    got = fleet_scan.scan_fleet(*q, vmin.flatten(1, 2), vmax.flatten(1, 2))
+    want = fref.scan_fleet(*[torch.as_tensor(a) for a in (
+        lo[0], hi[0], mins.reshape(3, 10, c + 7), maxs.reshape(3, 10, c + 7))])
+    assert torch.equal(got.cpu(), want)
+
+
+def test_decision_fused_freq_only_launch_matches_plain(cuda_device):
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.decision_fused import ref as dref
+    rng = np.random.default_rng(11)
+    for s, p, c, w in ((2, 16, 8, 1_000), (2, 16, 8, 64), (3, 37, 5, 1)):
+        _, _, mins, maxs, _, _, w_lo, w_hi = plane_operands(
+            rng, 0, 1, s, p, c, window=w)
+        vmin, vmax = plane_on(cuda_device, mins, maxs)
+        frames = torch.empty((0, 1, c), dtype=torch.float64,
+                             device=cuda_device)
+        dlo, dhi = (torch.as_tensor(a, device=cuda_device)
+                    for a in (w_lo, w_hi))
+        before = decision_fused.fused_decision.launches
+        scan, cost, freq = decision_fused.fused_decision(
+            frames, frames, vmin, vmax, w_lo=dlo, w_hi=dhi, emit_scan=False)
+        torch.cuda.synchronize()
+        assert decision_fused.fused_decision.launches == before + 1
+        assert scan is None and cost is None
+        want = dref.fused_decision(
+            frames.cpu(), frames.cpu(), torch.as_tensor(mins),
+            torch.as_tensor(maxs), w_lo=torch.as_tensor(w_lo),
+            w_hi=torch.as_tensor(w_hi))[2]
+        assert torch.equal(freq.cpu(), want)
+
+
+@pytest.mark.parametrize("b,t,s,p,c", [(16, 128, 12, 8, 10),
+                                       (3, 2, 3, 700, 40),
+                                       (5, 7, 5, 3, 6)])
+def test_decision_fused_cost_is_bitwise_equal_across_launches(cuda_device, b,
+                                                              t, s, p, c):
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.decision_fused import ref as dref
+    rng = np.random.default_rng(b * t + p)
+    lo, hi, mins, maxs, rows, inv, *_ = plane_operands(rng, b, t, s, p, c)
+    rows *= rng.uniform(0.5, 2.0, rows.shape)      # qd-tree scaled counts
+    vmin, vmax = plane_on(cuda_device, mins, maxs)
+    dev = [torch.as_tensor(a, device=cuda_device)
+           for a in (lo, hi, rows, inv)]
+    costs = [decision_fused.fused_decision(dev[0], dev[1], vmin, vmax,
+                                           dev[2], dev[3],
+                                           emit_scan=False)[1]
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(costs[0].view(torch.int64), costs[1].view(torch.int64))
+    want = dref.fused_decision(*[torch.as_tensor(a) for a in (
+        lo, hi, mins, maxs, rows, inv)])[1]
+    assert torch.allclose(costs[0].cpu(), want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("path", [1, 2])
+@pytest.mark.parametrize("b,t,s,p,c,w,c_pad,t_step", [
+    (16, 128, 12, 8, 10, 80, 0, 1),   # fleet64 pass, with a window
+    (1, 128, 12, 8, 10, 1, 0, 1),     # fleet64 frame
+    (3, 17, 3, 130, 7, 5, 2, 2),      # ragged, strided
+    (3, 2, 3, 700, 40, 3, 0, 1),      # S * P past one tile
+    (2, 3, 4, 40, 0, 2, 0, 1),        # no columns
+])
+def test_each_fleet_path_matches_plain(cuda_device, path, b, t, s, p, c, w,
+                                       c_pad, t_step):
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.decision_fused import ref as dref
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.fleet_scan import ref as fref
+    rng = np.random.default_rng(path + b + p)
+    lo, hi, mins, maxs, rows, inv, w_lo, w_hi = plane_operands(
+        rng, b, t, s, p, c, window=w)
+    with_nans(rng, lo, hi, mins, maxs)
+    vmin, vmax = plane_on(cuda_device, mins, maxs, c_pad, t_step)
+    dev = [torch.as_tensor(a, device=cuda_device)
+           for a in (lo, hi, rows, inv, w_lo, w_hi)]
+    scan, cost, freq = decision_fused.fused_decision(
+        *dev[:2], vmin, vmax, *dev[2:], path=path)
+    frames = [fleet_scan.scan_fleet(dev[0][k], dev[1][k], vmin.flatten(1, 2),
+                                    vmax.flatten(1, 2), path=path)
+              for k in range(b)]
+    torch.cuda.synchronize()
+    cpu = [torch.as_tensor(a) for a in (lo, hi, mins, maxs, rows, inv, w_lo,
+                                        w_hi)]
+    w_scan, w_cost, w_freq = dref.fused_decision(*cpu)
+    assert torch.equal(scan.cpu(), w_scan)
+    assert torch.allclose(cost.cpu(), w_cost, rtol=1e-12, atol=0)
+    assert torch.equal(freq.cpu(), w_freq)
+    for k, got in enumerate(frames):
+        assert torch.equal(got.cpu(), fref.scan_fleet(
+            cpu[0][k], cpu[1][k], cpu[2].reshape(t, s * p, c),
+            cpu[3].reshape(t, s * p, c)))
+    with pytest.raises(ValueError, match="path"):
+        decision_fused.fused_decision(*dev[:2], vmin, vmax, path=3)
+    with pytest.raises(ValueError, match="path"):
+        fleet_scan.scan_fleet(dev[0][0], dev[1][0], vmin.flatten(1, 2),
+                              vmax.flatten(1, 2), path=-1)
 
 
 def test_fleet_lanes_reach_the_kernels_and_equal_the_cpu(cuda_device):
