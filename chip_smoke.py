@@ -32,7 +32,12 @@ Phases, each printing JSON lines:
    1,000 window rows, no slots) on the path the kernel chooses and on
    each forced one (one or four slots a thread), with each path's device
    time at the two passes; ``cost`` must also equal itself bitwise across
-   two launches.  Scans,
+   two launches.  The move-score kernel (the same tile with one tenant and
+   the window's freq as its only output; a thread-per-output kernel past
+   the tile's 2,905 columns) runs at both planning shapes and the other
+   ``MOVE_SHAPES`` (W 1,000, NaN bounds, partition- and state-strided
+   planes, S * P past one tile, the column limit and one past it) on each
+   path, with each path's device time at the two planning shapes.  Scans,
    ``freq``, move scores and Z-order keys and routes (the TPU kernel's
    float32 lane at its bench
    shape 1,000,000 x 3; the layout generator's float64 lane on the
@@ -1201,26 +1206,56 @@ def window_operands(rng, q: int, s: int, p: int, c: int, identity: bool):
     return lo, hi, mins, maxs
 
 
-#: (name, Q, S, P, C, row_pad, identity).  The first is the planning
+#: (name, Q, S, P, C, c_pad, p_pad, bounds).  The first is the planning
 #: shape of the fleet cells (2 layouts of P 16, C 8, a 64-query window),
-#: the second the single-table cell's (P 32, C 32).
+#: the second the single-table cell's (P 32, C 32).  ``c_pad`` and
+#: ``p_pad`` make the plane a view of one with more columns or partitions
+#: (partition and state strides the kernel reads in place).  ``bounds``:
+#: "identity" makes half the partitions identity rows and half the window
+#: rows [-inf, +inf]; "nan" puts NaN into 5 % of the bounds; "few" leaves
+#: every column past the eighth unbounded, so that wide windows still
+#: overlap.  A C of "limit" is the tile's column limit
+#: (``decision_fused_max_columns()``, 2,905), "limit + 1" the first width
+#: the thread-per-output kernel takes.  The tile holds 96 KB of zone maps
+#: (60 slots at C 100: "S * P past one tile" loops over two tiles a block).
 MOVE_SHAPES = [
-    ("fleet plan 64 x 2 x 16 x 8", 64, 2, 16, 8, 0, False),
-    ("single-table plan 64 x 2 x 32 x 32", 64, 2, 32, 32, 0, False),
-    ("one query", 1, 2, 16, 8, 0, False),
-    ("ragged P 37", 64, 2, 37, 8, 0, False),
-    ("ragged P 130", 64, 2, 130, 8, 0, False),
-    ("wide S 4096", 64, 4096, 16, 8, 0, False),
-    ("strided plane view", 64, 2, 32, 32, 3, False),
-    ("+-inf rows", 64, 2, 16, 8, 0, True),
-    ("window past 48 KB of shared memory", 200, 2, 33, 100, 0, False),
-    ("zero columns", 9, 2, 20, 0, 0, False),
+    ("fleet plan 64 x 2 x 16 x 8", 64, 2, 16, 8, 0, 0, ""),
+    ("single-table plan 64 x 2 x 32 x 32", 64, 2, 32, 32, 0, 0, ""),
+    ("one query", 1, 2, 16, 8, 0, 0, ""),
+    ("ragged P 37", 64, 2, 37, 8, 0, 0, ""),
+    ("ragged P 130", 64, 2, 130, 8, 0, 0, ""),
+    ("wide S 4096", 64, 4096, 16, 8, 0, 0, ""),
+    ("strided plane view", 64, 2, 32, 32, 3, 0, ""),
+    ("state-strided plane view", 64, 2, 16, 8, 0, 3, ""),
+    ("+-inf rows", 64, 2, 16, 8, 0, 0, "identity"),
+    ("window past 48 KB of shared memory", 200, 2, 33, 100, 0, 0, ""),
+    ("zero columns", 9, 2, 20, 0, 0, 0, ""),
+    ("W 1,000", 1_000, 2, 16, 8, 0, 0, ""),
+    ("NaN zone maps and window bounds", 64, 2, 16, 8, 0, 0, "nan"),
+    ("NaN, strided, ragged", 64, 3, 37, 8, 2, 1, "nan"),
+    ("S * P past one tile", 64, 4, 4_000, 100, 0, 0, ""),
+    ("columns at the tile's limit", 64, 2, 5, "limit", 0, 0, "few"),
+    ("columns past the tile's limit", 100, 2, 5, "limit + 1", 1, 0, "few"),
 ]
 
 
+def move_plane(device, mins, maxs, c_pad: int = 0, p_pad: int = 0):
+    """The (S, P, C) plane on ``device``; with ``c_pad`` / ``p_pad`` a view
+    of a plane with more columns / partitions."""
+    import torch
+    s, p, c = mins.shape
+    wmin = torch.zeros((s, p + p_pad, c + c_pad), dtype=torch.float64,
+                       device=device)
+    wmax = torch.zeros_like(wmin)
+    wmin[:, :p, :c] = torch.as_tensor(mins, device=device)
+    wmax[:, :p, :c] = torch.as_tensor(maxs, device=device)
+    return wmin[:, :p, :c], wmax[:, :p, :c]
+
+
 def phase_move_score_kernel(device) -> dict:
-    """move_score against its plain version over MOVE_SHAPES (exactly
-    equal); times at the two planning shapes, and the fused decision
+    """move_score against its plain version over MOVE_SHAPES, bitwise, on
+    the path the kernel chooses and on each forced one; times at the two
+    planning shapes (each path's device time too), and the fused decision
     kernel's freq-only launch at the fleet's; returns the kernel's summary
     at the fleet planning shape."""
     import numpy as np
@@ -1230,24 +1265,29 @@ def phase_move_score_kernel(device) -> dict:
     from repro_torch.kernels.move_score import move_score, ref as mref
     rng = np.random.default_rng(2)
     lib = move_score._lib()
+    limit = decision_fused._lib().decision_fused_max_columns()
     stream = _backend.stream_handle(device)
     results = []
-    for name, q, s, p, c, pad, identity in MOVE_SHAPES:
-        lo, hi, mins, maxs = window_operands(rng, q, s, p, c, identity)
-        wmin = torch.zeros((s, p, c + pad), dtype=torch.float64,
-                           device=device)
-        wmax = torch.zeros_like(wmin)
-        wmin[..., :c] = torch.as_tensor(mins, device=device)
-        wmax[..., :c] = torch.as_tensor(maxs, device=device)
-        vmin, vmax = wmin[..., :c], wmax[..., :c]
+    for name, q, s, p, c, c_pad, p_pad, bounds in MOVE_SHAPES:
+        c = {"limit": limit, "limit + 1": limit + 1}.get(c, c)
+        lo, hi, mins, maxs = window_operands(rng, q, s, p, c,
+                                             bounds == "identity")
+        if bounds == "nan":
+            with_nans(rng, lo, hi, mins, maxs)
+        if bounds == "few":
+            lo[:, 8:], hi[:, 8:] = -np.inf, np.inf
+        vmin, vmax = move_plane(device, mins, maxs, c_pad, p_pad)
         dlo, dhi = (torch.as_tensor(a, device=device) for a in (lo, hi))
-        got = move_score.move_scores(dlo, dhi, vmin, vmax)
         want = mref.move_scores(dlo, dhi, vmin, vmax)
+        got = {path: move_score.move_scores(dlo, dhi, vmin, vmax, path=path)
+               for path in (0, *FLEET_PATHS)}
         torch.cuda.synchronize()
-        err = float((got - want).abs().max()) if got.numel() else 0.0
+        err = float((got[0] - want).abs().max()) if want.numel() else 0.0
         row = {"shape": name, "q": q, "s": s, "p": p, "c": c,
                "plane_strides": list(vmin.stride()),
-               "equal": bool(torch.equal(got, want)), "max_abs_err": err}
+               "equal": all(torch.equal(g.view(torch.int64),
+                                        want.view(torch.int64))
+                            for g in got.values()), "max_abs_err": err}
         if not row["equal"]:
             emit("kernel", kernel="move_score", **row)
             raise AssertionError(f"move_score disagrees with its plain "
@@ -1255,24 +1295,38 @@ def phase_move_score_kernel(device) -> dict:
         if len(results) < 2:
             out = torch.empty((s, p), dtype=torch.float64, device=device)
 
-            def raw():
+            def raw(path=0):
                 lib.move_score(dlo.data_ptr(), dhi.data_ptr(),
                                vmin.data_ptr(), vmax.data_ptr(),
                                vmin.stride(0), vmin.stride(1),
-                               out.data_ptr(), q, s, p, c, stream)
+                               out.data_ptr(), q, s, p, c, path, stream)
             row.update({
                 "ms": cuda_time_ms(raw, 200),
-                **({} if results else {"device_ms": device_ms(
-                    raw, 200, "move_score_kernel")}),
+                "device_ms": device_ms(raw, 200, "move_score_kernel"),
                 "wrapper_ms": cuda_time_ms(lambda: move_score.move_scores(
                     dlo, dhi, vmin, vmax), 200),
                 "plain_ms": cuda_time_ms(lambda: mref.move_scores(
                     dlo, dhi, vmin, vmax), 200),
                 **move_bound(q, s, p, c)})
+            for path, key in FLEET_PATHS.items():
+                row[f"ms_{key}"] = cuda_time_ms(lambda: raw(path), 200)
+                row[f"device_ms_{key}"] = device_ms(
+                    lambda: raw(path), 200, "move_score_kernel")
+            # One column fewer and one more: the staged window rows are C
+            # doubles apart, so an odd C spreads a warp's rows over the
+            # shared-memory banks and an even one does not.
+            row["device_ms_by_columns"] = {}
+            for cc in (c - 1, c + 1):
+                ops = [torch.as_tensor(a, device=device) for a in
+                       window_operands(np.random.default_rng(cc), q, s, p,
+                                       cc, False)]
+                row["device_ms_by_columns"][cc] = device_ms(
+                    lambda: move_score.move_scores(*ops), 200,
+                    "move_score_kernel")
         if len(results) == 0:
             # The planner's other lane: one fused decision launch with no
             # frames and the window's freq only, over the (1, S, P, C)
-            # plane.
+            # plane: the same tile on the same operands.
             frames = torch.empty((0, 1, c), dtype=torch.float64,
                                  device=device)
             freq = torch.empty((1, s, p), dtype=torch.float64, device=device)

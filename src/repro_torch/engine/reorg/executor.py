@@ -31,6 +31,16 @@ final increment is nudged by ULPs if ordinary subtraction would leave the
 sum one rounding step off).  ``sum(charge for _, _, charge in
 record.charges)`` therefore telescopes to exactly the atomic charge —
 the invariant the property tests pin down.
+
+A two-entry close: when ``charged + inc`` is an exact halfway case for
+every ``inc`` near ``α - charged`` (``charged`` has a bit at half of
+``α``'s ulp), round-half-to-even reaches only the two neighbours of an odd
+``α`` and no single increment lands.  The completing step then appends
+``(index, rows, inc1)`` and ``(index, 0, inc2)``: ``inc1`` is the largest
+increment with ``charged + inc1 < α`` and ``inc2 = α - (charged + inc1)``,
+exact by Sterbenz's lemma, so the sum is ``α`` and the rows still add up
+to the migration's.  Everywhere one increment lands, the ledger is the
+single-entry one (:func:`closing_charges`).
 """
 from __future__ import annotations
 
@@ -65,6 +75,28 @@ def closing_increment(charged: float, alpha: float) -> float:
         f"alpha={alpha!r}")
 
 
+def closing_charges(charged: float, alpha: float) -> Tuple[float, ...]:
+    """The final charges that land a left-to-right float sum on ``alpha``.
+
+    ``(closing_increment(charged, alpha),)`` wherever that lands; else
+    ``(inc1, inc2)``: ``inc1`` the largest increment with ``charged + inc1
+    < alpha``, ``inc2 = alpha - (charged + inc1)`` (exact, positive), so
+    ``(charged + inc1) + inc2 == alpha`` bitwise.
+    """
+    try:
+        return (closing_increment(charged, alpha),)
+    except AssertionError:
+        pass                                # a halfway tie: close in two
+    inc1 = alpha - charged
+    for _ in range(4):                      # 1 step suffices on a tie
+        if charged + inc1 < alpha:
+            return inc1, alpha - (charged + inc1)
+        inc1 = math.nextafter(inc1, -math.inf)
+    raise AssertionError(
+        f"could not close charge ledger in two entries: "
+        f"charged={charged!r} alpha={alpha!r}")
+
+
 @dataclasses.dataclass
 class MigrationRecord:
     """The observable trace of one (possibly still in-flight) migration."""
@@ -93,12 +125,13 @@ class MigrationRecord:
 
     def charge(self, index: int, rows: int, completing: bool) -> None:
         if completing:
-            inc = closing_increment(self.charged, self.alpha)
+            incs = closing_charges(self.charged, self.alpha)
         else:
-            inc = self.alpha * (self.moved_rows / max(self.total_rows, 1)) \
-                - self.charged
-        self.charges.append((index, rows, inc))
-        self.charged = self.charged + inc
+            incs = (self.alpha * (self.moved_rows / max(self.total_rows, 1))
+                    - self.charged,)
+        for k, inc in enumerate(incs):      # a tie's second entry moves 0
+            self.charges.append((index, rows if k == 0 else 0, inc))
+            self.charged = self.charged + inc
 
 
 class ReorgExecutor:
@@ -264,5 +297,5 @@ class ReorgExecutor:
         }
 
 
-__all__ = ["MigrationRecord", "ReorgExecutor", "closing_increment",
-           "plan_migration"]
+__all__ = ["MigrationRecord", "ReorgExecutor", "closing_charges",
+           "closing_increment", "plan_migration"]

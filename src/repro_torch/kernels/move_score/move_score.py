@@ -5,7 +5,12 @@ The Hopper counterpart of the TPU kernel ``move_scores_pallas``: for a
 zone maps, the fraction of the window that must scan each partition.  The
 reorganization planner orders a migration's moves by it.  The kernel
 compares in float64 and counts in an integer, so the result is exactly
-``count / Q`` on every input.
+``count / Q`` on every input.  It is the fleet plane's shared-memory tile
+(``csrc/fleet_tile.cuh``) with one tenant and the window frequency as its
+only output: a thread takes four slots of a window row (one below four
+rows); ``path=1`` (one) or ``path=2`` (four) forces either, for
+measurement.  Past the tile's column limit a thread-per-output kernel
+takes the plane, so every column count is taken.
 
 :func:`move_scores` runs the kernel on CUDA tensors and the plain version
 (:mod:`.ref`) on CPU tensors; there is no fallback from one to the other.
@@ -22,8 +27,12 @@ from . import ref
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
 _INT_MAX = 2 ** 31 - 1
+#: ``path`` values: 0 lets the kernel choose, the others force the slots
+#: a thread takes.
+PATHS = {0: "choose", 1: "one slot a thread", 2: "four slots a thread"}
 
 
 def _lib():
@@ -31,8 +40,6 @@ def _lib():
     if lib.move_score.argtypes is None:
         lib.move_score.argtypes = _ARGTYPES
         lib.move_score.restype = ctypes.c_int
-        lib.move_score_max_columns.argtypes = []
-        lib.move_score_max_columns.restype = ctypes.c_int
     return lib
 
 
@@ -64,15 +71,20 @@ def _check(q_lo, q_hi, p_min, p_max) -> None:
 
 
 def move_scores(q_lo: torch.Tensor, q_hi: torch.Tensor, p_min: torch.Tensor,
-                p_max: torch.Tensor) -> torch.Tensor:
+                p_max: torch.Tensor, *, path: int = 0) -> torch.Tensor:
     """(Q, C) window x (S, P, C) plane -> (S, P) float64 scan frequency.
 
     ``out[s, p]`` is the fraction of the Q window rows whose bounds overlap
     partition p of state s in every column.  float64 operands on one
     device, Q >= 1.  The window must be contiguous; the plane operands need
     dense columns and share their state and partition strides (a
-    row-strided view is read in place).
+    row-strided view is read in place).  ``path`` is the kernel's thread
+    layout (:data:`PATHS`; 0 = its own choice); the plain version ignores
+    it.
     """
+    if path not in PATHS:
+        raise ValueError(f"move_scores: path must be one of "
+                         f"{sorted(PATHS)}, got {path!r}")
     _check(q_lo, q_hi, p_min, p_max)
     if q_lo.device.type == "cpu":
         return ref.move_scores(q_lo, q_hi, p_min, p_max)
@@ -88,9 +100,6 @@ def move_scores(q_lo: torch.Tensor, q_hi: torch.Tensor, p_min: torch.Tensor,
     if q > _INT_MAX:
         raise ValueError("move_scores: window exceeds int32 rows")
     lib = _lib()
-    if c > lib.move_score_max_columns():
-        raise ValueError(f"move_scores: {c} columns exceed the "
-                         f"{lib.move_score_max_columns()} the kernel takes")
     out = torch.empty((s, p), dtype=torch.float64, device=q_lo.device)
     if s * p == 0:
         return out
@@ -98,7 +107,7 @@ def move_scores(q_lo: torch.Tensor, q_hi: torch.Tensor, p_min: torch.Tensor,
         err = lib.move_score(q_lo.data_ptr(), q_hi.data_ptr(),
                              p_min.data_ptr(), p_max.data_ptr(),
                              p_min.stride(0), p_min.stride(1),
-                             out.data_ptr(), q, s, p, c,
+                             out.data_ptr(), q, s, p, c, path,
                              _backend.stream_handle(q_lo.device))
     _backend.check_launch("move_score", err)
     move_scores.launches += 1

@@ -608,28 +608,105 @@ def window_operands(rng, q, s, p, c):
     return lo, hi, mins, maxs
 
 
-@pytest.mark.parametrize("q,s,p,c,pad", [
-    (64, 2, 16, 8, 0), (64, 2, 32, 32, 0), (1, 2, 16, 8, 0),
-    (40, 3, 37, 5, 0), (64, 2, 130, 7, 0), (64, 4096, 16, 8, 0),
-    (64, 2, 32, 32, 3), (9, 2, 20, 0, 0),
-    (200, 2, 33, 100, 0)])          # window tiles past 48 KB of shared memory
-def test_move_score_kernel_matches_plain(cuda_device, q, s, p, c, pad):
+def move_score_against_plain(device, lo, hi, mins, maxs, path=0, c_pad=0,
+                             p_pad=0):
+    """One move_score launch on ``path`` over a view of a plane with
+    ``c_pad`` more columns and ``p_pad`` more partitions: bitwise the plain
+    version on the CPU copies, one launch counted."""
     from repro_torch.kernels.move_score import move_score, ref as mref
-    rng = np.random.default_rng(q + s + p + c)
-    lo, hi, mins, maxs = window_operands(rng, q, s, p, c)
-    wide_min = torch.zeros((s, p, c + pad), dtype=torch.float64,
-                           device=cuda_device)
+    s, p, c = mins.shape
+    wide_min = torch.zeros((s, p + p_pad, c + c_pad), dtype=torch.float64,
+                           device=device)
     wide_max = torch.zeros_like(wide_min)
-    wide_min[..., :c] = torch.as_tensor(mins, device=cuda_device)
-    wide_max[..., :c] = torch.as_tensor(maxs, device=cuda_device)
-    dev = [torch.as_tensor(a, device=cuda_device) for a in (lo, hi)]
+    wide_min[:, :p, :c] = torch.as_tensor(mins, device=device)
+    wide_max[:, :p, :c] = torch.as_tensor(maxs, device=device)
+    dev = [torch.as_tensor(a, device=device) for a in (lo, hi)]
     before = move_score.move_scores.launches
-    got = move_score.move_scores(*dev, wide_min[..., :c], wide_max[..., :c])
+    got = move_score.move_scores(*dev, wide_min[:, :p, :c],
+                                 wide_max[:, :p, :c], path=path)
     torch.cuda.synchronize()
     assert move_score.move_scores.launches == before + 1
     want = mref.move_scores(*[torch.as_tensor(a)
                               for a in (lo, hi, mins, maxs)])
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
+    return want
+
+
+MOVE_SCORE_SHAPES = [
+    (64, 2, 16, 8, 0), (64, 2, 32, 32, 0), (1, 2, 16, 8, 0),
+    (40, 3, 37, 5, 0), (64, 2, 130, 7, 0), (64, 4096, 16, 8, 0),
+    (64, 2, 32, 32, 3), (9, 2, 20, 0, 0),
+    (200, 2, 33, 100, 0)]           # window tiles past 48 KB of shared memory
+
+
+@pytest.mark.parametrize("q,s,p,c,pad", MOVE_SCORE_SHAPES)
+def test_move_score_kernel_matches_plain(cuda_device, q, s, p, c, pad):
+    rng = np.random.default_rng(q + s + p + c)
+    move_score_against_plain(cuda_device, *window_operands(rng, q, s, p, c),
+                             c_pad=pad)
+
+
+@pytest.mark.parametrize("path", [1, 2])
+@pytest.mark.parametrize("q,s,p,c,pad", MOVE_SCORE_SHAPES)
+def test_each_move_score_path_matches_plain(cuda_device, path, q, s, p, c,
+                                            pad):
+    rng = np.random.default_rng(q + s + p + c)
+    move_score_against_plain(cuda_device, *window_operands(rng, q, s, p, c),
+                             path=path, c_pad=pad)
+
+
+@pytest.mark.parametrize("path", [0, 1, 2])
+def test_move_score_matches_plain_on_nan_and_inf_bounds(cuda_device, path):
+    """NaN in 5 % of the zone-map ends and window bounds (a NaN fails its
+    compare), on a ragged plane strided in both partitions and columns,
+    and +-inf identity rows and padding."""
+    rng = np.random.default_rng(50 + path)
+    lo, hi, mins, maxs = window_operands(rng, 64, 3, 37, 8)
+    for a in (lo, hi, mins, maxs):
+        a[rng.random(a.shape) < 0.05] = np.nan
+    move_score_against_plain(cuda_device, lo, hi, mins, maxs, path, 2, 1)
+    lo, hi, mins, maxs = window_operands(rng, 64, 2, 16, 8)
+    mins[:, 12:], maxs[:, 12:] = np.inf, -np.inf
+    lo[::2], hi[::2] = -np.inf, np.inf
+    want = move_score_against_plain(cuda_device, lo, hi, mins, maxs, path)
+    # [+inf, -inf] padding overlaps only the [-inf, +inf] rows, as in numpy.
+    assert (want[:, 12:] == 0.5).all()
+
+
+@pytest.mark.parametrize("path", [0, 1, 2])
+def test_move_score_window_of_1000_rows_is_count_over_q(cuda_device, path):
+    """count / 1,000 is not the product with the reciprocal: the kernel's
+    one division must give the plain version's bits."""
+    rng = np.random.default_rng(1_000 + path)
+    move_score_against_plain(cuda_device,
+                             *window_operands(rng, 1_000, 2, 16, 8), path)
+
+
+@pytest.mark.parametrize("path", [0, 1, 2])
+def test_move_score_slots_past_one_tile(cuda_device, path):
+    """16,000 slots of 100 columns: a block loops over two tiles of zone
+    maps; dense and with a state stride past P * C."""
+    rng = np.random.default_rng(16_000 + path)
+    ops = window_operands(rng, 64, 4, 4_000, 100)
+    move_score_against_plain(cuda_device, *ops, path)
+    move_score_against_plain(cuda_device, *ops, path, p_pad=3)
+
+
+@pytest.mark.parametrize("path", [0, 1, 2])
+def test_move_score_takes_columns_past_the_tile_limit(cuda_device, path):
+    """At the tile's limit the tile takes the plane; one column past it the
+    thread-per-output kernel does.  Windows bound only their first eight
+    columns, so partitions are scanned."""
+    from repro_torch.kernels.decision_fused import decision_fused
+    limit = decision_fused._lib().decision_fused_max_columns()
+    assert limit == 2_905
+    rng = np.random.default_rng(limit + path)
+    for c in (limit, limit + 1):
+        lo, hi, mins, maxs = window_operands(rng, 100, 2, 5, c)
+        lo[:, 8:], hi[:, 8:] = -np.inf, np.inf
+        want = move_score_against_plain(cuda_device, lo, hi, mins, maxs,
+                                        path, c_pad=1)
+        assert want.max() > 0
 
 
 def test_move_score_refuses_cuda_operands_it_cannot_take(cuda_device):
@@ -647,10 +724,13 @@ def test_move_score_refuses_cuda_operands_it_cannot_take(cuda_device):
         move_score.move_scores(q, q, plane, plane.cpu())
     with pytest.raises(ValueError, match="empty"):
         move_score.move_scores(q[:0], q[:0], plane, plane)
-    wide = torch.zeros((1, 1, 500), **kw)
-    with pytest.raises(ValueError, match="columns"):
-        move_score.move_scores(torch.zeros((1, 500), **kw),
-                               torch.zeros((1, 500), **kw), wide, wide)
+    with pytest.raises(ValueError, match="path"):
+        move_score.move_scores(q, q, plane, plane, path=3)
+    # 500 columns, refused by the kernel's earlier design, are taken.
+    rng = np.random.default_rng(500)
+    lo, hi, mins, maxs = window_operands(rng, 4, 1, 3, 500)
+    lo[:, 4:], hi[:, 4:] = -np.inf, np.inf
+    move_score_against_plain(cuda_device, lo, hi, mins, maxs)
 
 
 def test_incremental_fleet_on_the_card_equals_the_cpu(cuda_device):

@@ -142,3 +142,41 @@ def test_wrapper_refuses_what_it_cannot_take_and_counts_no_cpu_launch():
         move_score.move_scores(q, q, p[0], p[0])
     with pytest.raises(ValueError, match="lane"):
         planner.scan_frequencies([], q.numpy(), q.numpy(), compute="numpy")
+
+
+@pytest.mark.parametrize("path", sorted(move_score.PATHS))
+def test_wrapper_takes_each_path_on_the_cpu_without_a_launch(path):
+    """Every path runs the plain version on CPU tensors (the kernel's
+    thread layout does not change the function) and counts no launch."""
+    rng = np.random.default_rng(path)
+    operands = tt(*window_plane(rng, 17, 3, 11, 4, False))
+    before = move_score.move_scores.launches
+    got = move_score.move_scores(*operands, path=path)
+    assert move_score.move_scores.launches == before
+    assert torch.equal(got, ref.move_scores(*operands))
+
+
+@pytest.mark.parametrize("path", [-1, 3, 1.5, None])
+def test_wrapper_refuses_other_paths_before_any_launch(path):
+    q = torch.zeros((4, 3), dtype=torch.float64)
+    p = torch.zeros((2, 5, 3), dtype=torch.float64)
+    before = move_score.move_scores.launches
+    with pytest.raises(ValueError, match="path"):
+        move_score.move_scores(q, q, p, p, path=path)
+    assert move_score.move_scores.launches == before
+
+
+def test_wrapper_takes_columns_past_the_tile_limit_on_the_cpu():
+    """3,000 columns (past the fleet tile's 2,905, where the card takes the
+    thread-per-output kernel) give the plain result, which is numpy's exact
+    mean; the windows leave all but a few columns unbounded so that some
+    partitions are scanned."""
+    rng = np.random.default_rng(3000)
+    q_lo, q_hi, p_min, p_max = window_plane(rng, 12, 2, 6, 3_000, False)
+    q_lo[:, 5:], q_hi[:, 5:] = -np.inf, np.inf
+    want = ((p_min[None] <= q_hi[:, None, None])
+            & (p_max[None] >= q_lo[:, None, None])).all(-1).mean(axis=0)
+    assert 0 < want.max()
+    got = move_score.move_scores(*tt(q_lo, q_hi, p_min, p_max))
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, ref.move_scores(*tt(q_lo, q_hi, p_min, p_max)))

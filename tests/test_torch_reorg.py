@@ -10,6 +10,8 @@ fleet scoring lanes; ``repro`` runs its exact ``compute="numpy"`` planner
 lane.  With an unbounded row budget the incremental traces must also equal
 the atomic ones, as in ``repro``'s own gate (``tests/test_reorg.py``).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -517,6 +519,144 @@ def test_closing_increment_and_ledgers_over_a_seeded_grid():
             assert total == alpha == record.charged, case
             ledgers.append(record.charges)
         assert ledgers[0] == ledgers[1], case
+
+
+#: The reference's failing property example (``ROADMAP.md`` section 3):
+#: the closing charge of seed 7806, 258 rows, 6 partitions, 2 batches.
+TIE = (110.64512147955517, 385.76272083412476)
+
+
+def left_to_right(start, incs):
+    total = start
+    for inc in incs:
+        total = total + inc
+    return total
+
+
+def tie_pairs(seed, n):
+    """``n`` (charged, alpha) pairs drawn as a migration's last charge is,
+    kept where no single increment lands (the reference raises)."""
+    grid = np.random.default_rng(seed)
+    pairs = []
+    while len(pairs) < n:
+        alpha = float(grid.uniform(0.01, 500.0))
+        charged = alpha * float(grid.uniform(0.0, 1.0))
+        try:
+            rex.closing_increment(charged, alpha)
+        except AssertionError:
+            pairs.append((charged, alpha))
+    return pairs
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_closing_charges_land_on_alpha_in_two_where_the_reference_raises(
+        seed):
+    """On a halfway tie both packages' single increment raises; the port's
+    close is two non-negative entries whose left-to-right sum is alpha,
+    the first the largest that keeps the sum below alpha."""
+    for charged, alpha in tie_pairs(seed, 50) + [TIE]:
+        for mod in (tex, rex):
+            with pytest.raises(AssertionError, match="could not close"):
+                mod.closing_increment(charged, alpha)
+        incs = tex.closing_charges(charged, alpha)
+        assert len(incs) == 2 and min(incs) >= 0.0, (charged, alpha)
+        assert left_to_right(charged, incs) == alpha, (charged, alpha)
+        assert (charged + incs[0] < alpha
+                <= charged + math.nextafter(incs[0], math.inf))
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_closing_charges_are_the_reference_increment_where_it_lands(seed):
+    grid = np.random.default_rng(100 + seed)
+    pairs = [(0.0, 8.0), (7.9999999999999, 8.0), (2.6666666666666665, 8.0),
+             (0.1, 1.0), (1e-30, 1.0), (9.000000000000002, 9.0)]
+    for _ in range(2_000):
+        alpha = float(grid.uniform(0.01, 500.0))
+        pairs.append((alpha * float(grid.uniform(0.0, 1.0)), alpha))
+    landed = 0
+    for charged, alpha in pairs:
+        try:
+            want = rex.closing_increment(charged, alpha)
+        except AssertionError:
+            continue
+        assert tex.closing_charges(charged, alpha) == (want,)
+        landed += 1
+    assert landed > 1_900
+
+
+def port_migration_plan(seed, rows, partitions, num_queries=4):
+    """The port's plan for the reference property tests' migration fixture
+    (``tests/test_property.py::_migration_fixture``), from the same draws."""
+    rng = np.random.default_rng(seed)
+    data = rng.uniform(0, 100, size=(rows, 3))
+    queries = []
+    for _ in range(num_queries):
+        lo, hi = np.full(3, -np.inf), np.full(3, np.inf)
+        col = int(rng.integers(3))
+        lo[col] = rng.uniform(0, 80)
+        hi[col] = lo[col] + rng.uniform(1, 30)
+        queries.append(tc.workload.Query(lo=lo, hi=hi))
+    table_ = torch.as_tensor(data)
+    src = tc.build_default_layout(0, table_, partitions, sort_col=0)
+    tgt = tc.make_generator("qdtree")(1, table_, queries, partitions)
+    return tpl.plan_migration(table_, src, tgt, queries)
+
+
+def charge_in_batches(seed, rows, partitions, batches, alpha):
+    """The reference property test's schedule on the port's executor: the
+    plan's moves cut into ``batches`` groups, the last one completing."""
+    plan = port_migration_plan(seed, rows, partitions)
+    record = tex.MigrationRecord(target_state=1, charged_at=0, begun_at=0,
+                                 alpha=alpha,
+                                 total_rows=plan.total_move_rows,
+                                 moves_total=plan.num_moves)
+    moves = list(plan.moves)
+    cuts = sorted(np.random.default_rng(seed).integers(
+        0, len(moves) + 1, size=batches - 1).tolist())
+    groups = [moves[a:b] for a, b in zip([0] + cuts, cuts + [len(moves)])]
+    for k, group in enumerate(groups):
+        moved = sum(m.rows for m in group)
+        record.moved_rows += moved
+        record.charge(index=k, rows=moved,
+                      completing=k == len(groups) - 1)
+    return record, len(groups)
+
+
+def assert_closed_on_alpha(record, alpha):
+    assert left_to_right(0.0, [c for _, _, c in record.charges]) == alpha
+    assert record.charged == alpha
+    assert all(rows >= 0 for _, rows, _ in record.charges)
+    assert sum(rows for _, rows, _ in record.charges) == record.total_rows
+
+
+@pytest.mark.parametrize("seed,rows,partitions,batches,alpha", [
+    (7806, 258, 6, 2, TIE[1]), (241, 200, 3, 2, 465.2191838128393)])
+def test_migration_record_closes_the_reference_failing_example(
+        seed, rows, partitions, batches, alpha):
+    """Examples on which the reference property test failed."""
+    record, groups = charge_in_batches(seed, rows, partitions, batches,
+                                       alpha)
+    before = left_to_right(0.0, [c for _, _, c in record.charges[:groups - 1]])
+    with pytest.raises(AssertionError, match="could not close"):
+        rex.closing_increment(before, alpha)      # the reference raises
+    assert len(record.charges) == groups + 1      # the two-entry close
+    assert record.charges[-1][:2] == (groups - 1, 0)
+    assert_closed_on_alpha(record, alpha)
+
+
+@pytest.mark.parametrize("block", range(4))
+def test_migration_record_closes_on_alpha_over_a_seeded_grid(block):
+    """50 migrations a block, drawn as the reference property test draws
+    them (seed, rows 200-1200, 2-8 partitions, 1-9 batches, alpha)."""
+    grid = np.random.default_rng(21 + block)
+    for _ in range(50):
+        seed = int(grid.integers(0, 10_001))
+        rows, partitions = int(grid.integers(200, 1201)), int(
+            grid.integers(2, 9))
+        batches, alpha = int(grid.integers(1, 10)), float(
+            grid.uniform(0.01, 500.0))
+        record, _ = charge_in_batches(seed, rows, partitions, batches, alpha)
+        assert_closed_on_alpha(record, alpha)
 
 
 # ---------------------------------------------------------------------------
