@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases kernel,reorg_parity,reorg_full
     python3 chip_smoke.py --phases kernel,serve_parity,serve_full
     python3 chip_smoke.py --phases kernel,zorder_parity,zorder_full
+    python3 chip_smoke.py --phases kernel,ingest_parity,ingest_full
 
 Phases, each printing JSON lines:
 
@@ -112,6 +113,28 @@ Phases, each printing JSON lines:
    four ways (keys only, the fused route, ``searchsorted`` + ``clamp_max``
    alone, keys only on a column-major copy) beside its bound and the
    sector floor of its key columns.
+13. ``ingest_parity``: the streaming ingest plane, card against
+   ``BENCH_ingest.json`` and the CPU: (a) its five scenarios x three
+   compaction arms (never, always, debt) with ``FleetEngine.run`` at its
+   full config (4 tenants of 8,000 x 8, 1,000 queries, alpha 4) and its
+   smoke config, every deterministic field and cost ratio equal to the
+   file, rounded as the benchmark rounds; (b) at the smoke config,
+   ``run_batched`` on both lanes and the unbounded incremental fleet on
+   both planner lanes equal to ``run`` for trickle, mixed_rw and
+   bulk_load (every migration closes on alpha at once); (c) the smoke
+   config's traces card against CPU;
+   (d) ``DiskBackend(durable=True)`` at 20,000 x 8 under mixed_rw: after
+   every event the WAL replay equals the live manifest and pending
+   batches, and the trace equals the ``InMemoryBackend``'s.
+14. ``ingest_full``: the ``fleet16-sf1-oreo-ingest-mixed_rw`` cell, its
+   16 tenants cut to 8 for the script's time -- OREO tenants of 6,001,215
+   x 8 (benchmarks/bench_ingest.py's config) under mixed_rw with an append of 37,508 rows after every 8th query,
+   four arms (never, always, debt, debt/incremental) under
+   ``run_batched``; each arm's totals, events/s, decide, ingest, serve and
+   reorg seconds, peak memory, final table bytes, the plane's P_cap and
+   pruning's launches by caller; the never arm's final planes hold
+   pruning, fleet_scan and decision_fused against their plain versions;
+   debt/incremental must equal debt bitwise.
 
 Kernel launch counts are reset just before each main path and read just
 after it; every 50th (fleet) or 100th (single table, per-query scan or
@@ -155,7 +178,7 @@ SF1_ROWS = 6_001_215          # TPC-H lineitem cardinality at SF 1
 FLEET_SEED = 100              # benchmarks/bench_fleet.py: tenant tables
 PHASES = ("kernel", "parity", "fleet_parity", "full", "fleet_full",
           "reorg_parity", "reorg_full", "serve_parity", "serve_full",
-          "zorder_parity", "zorder_full")
+          "zorder_parity", "zorder_full", "ingest_parity", "ingest_full")
 
 
 def emit(phase: str, **fields) -> None:
@@ -2003,6 +2026,449 @@ def cell_reorg(device, rows: int = SF1_ROWS, tenants: int = 16,
 
 
 # ---------------------------------------------------------------------------
+# The streaming ingest plane and the manifest WAL
+# ---------------------------------------------------------------------------
+
+#: benchmarks/bench_ingest.py: the three compaction arms.
+INGEST_ARMS = {"never": {"auto_compact": False},
+               "always": {"debt_threshold": 0.0},
+               "debt": {"debt_threshold": 1.0}}
+#: The fields of BENCH_ingest.json that do not depend on the machine.
+INGEST_FIELDS = ("total_cost", "query_cost", "reorg_cost", "reorgs",
+                 "rows_appended", "rows_pending", "compactions",
+                 "clustering_debt", "total_excess")
+INGEST_SCENARIO_SEED = 7      # benchmarks/bench_ingest.py: bench_cell seed
+INGEST_CELL = "fleet16-sf1-oreo-ingest-mixed_rw"
+INGEST_BATCH_ROWS = 37_508    # mixed_rw's 50 of 8,000 rows, at 6,001,215
+INGEST_TENANTS = 8            # the cell's 16 tenants, cut for script time
+
+
+def ingest_tenant(data, alpha: float, delta: int, partitions: int,
+                  arm: str, backend=None, **engine_kw):
+    """One OREO tenant of benchmarks/bench_ingest.py (tenant_engine:
+    window 80, gen_every 40, seed 0, the default layout sorted on column
+    0) under one compaction arm; ``engine_kw`` reaches ``LayoutEngine``."""
+    from repro_torch import core, engine
+    cfg = core.OreoConfig(alpha=alpha, seed=0, delta=delta,
+                          manager=core.LayoutManagerConfig(
+                              target_partitions=partitions, window_size=80,
+                              gen_every=40))
+    policy = engine.OreoPolicy(
+        data, core.build_default_layout(0, data, partitions, sort_col=0),
+        core.make_generator("qdtree"), cfg)
+    return engine.LayoutEngine(
+        policy, backend or engine.InMemoryBackend(data), delta=cfg.delta,
+        ingest=engine.IngestConfig(**INGEST_ARMS[arm]), **engine_kw)
+
+
+def ingest_fields(res, fleet) -> dict:
+    """An arm's deterministic fields, rounded as
+    benchmarks/bench_ingest.py:86-124 rounds them."""
+    appended = pending = compactions = 0
+    debt = excess = 0.0
+    for tid in fleet.tenant_ids:
+        s = fleet.tenant(tid).ingest_stats()
+        appended += s["ingested_rows"]
+        pending += s["pending_rows"]
+        compactions += len(s["compactions"])
+        debt += s["clustering_debt"]
+        excess += s["total_excess"]
+    return {"total_cost": round(res.total_cost, 3),
+            "query_cost": round(res.total_query_cost, 3),
+            "reorg_cost": round(res.total_reorg_cost, 3),
+            "reorgs": res.num_reorgs, "rows_appended": appended,
+            "rows_pending": pending, "compactions": compactions,
+            "clustering_debt": round(debt, 3),
+            "total_excess": round(excess, 3)}
+
+
+def ingest_trace(fleet, res) -> tuple:
+    """A mixed-stream fleet run's trace, compactions and ingest counters."""
+    return (fleet_trace(res), tuple(
+        (tid, tuple(fleet.tenant(tid).compaction_indices),
+         tuple(sorted(fleet.tenant(tid).ingest_stats().items(),
+                      key=lambda kv: kv[0])))
+        for tid in fleet.tenant_ids))
+
+
+def ingest_tables(device, tenants: int, rows: int, columns: int) -> tuple:
+    """benchmarks/bench_ingest.py make_tenant_data (seed 100) on
+    ``device``, with the column bounds its streams are drawn over."""
+    import numpy as np
+    import torch
+    host = {f"t{t}": np.random.default_rng(FLEET_SEED + t).uniform(
+        0, 100, size=(rows, columns)) for t in range(tenants)}
+    lo = np.min([d.min(0) for d in host.values()], axis=0)
+    hi = np.max([d.max(0) for d in host.values()], axis=0)
+    return {tid: torch.as_tensor(d, device=device)
+            for tid, d in host.items()}, lo, hi
+
+
+def ingest_durable_parity(device, counted, rows: int = 20_000) -> None:
+    """A durable DiskBackend under mixed_rw and the always arm, driven
+    event by event through ``FleetEngine.step``: after every event the WAL
+    replay equals the live manifest and pending batches, and the trace
+    equals the InMemoryBackend's on the same card."""
+    import tempfile
+    from repro_torch import core, engine
+    table, lo, hi = ingest_tables(device, 1, rows, 8)
+    stream = core.make_ingest_scenario(
+        "mixed_rw", lo, hi, num_tenants=1, queries_per_tenant=200,
+        seed=INGEST_SCENARIO_SEED, batch_rows=50 * rows // 8_000)
+    (ROOT / "build").mkdir(exist_ok=True)
+    traces, replays, compactions = {}, 0, 0
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for kind in ("disk", "memory"):
+            backend = (engine.DiskBackend(table["t0"], tmp, background=False,
+                                          durable=True, wal_snapshot_every=8)
+                       if kind == "disk" else None)
+            fleet = engine.FleetEngine({"t0": ingest_tenant(
+                table["t0"], 4.0, 10, 16, "always", backend=backend)})
+            for ev in stream:
+                counted(device, lambda: fleet.step("t0", ev[1]))
+                if backend is None:
+                    continue
+                state = engine.DiskBackend.recover_state(tmp)
+                store = Path(backend._serving_store.root)
+                with open(store / "manifest.json") as f:
+                    live = json.load(f)
+                if (state["serving"] != store.name
+                        or state["manifest"] != live
+                        or [d["batch_id"] for d in state["deltas"]]
+                        != [b.batch_id for b in backend.delta_log.batches]):
+                    raise AssertionError("ingest_parity: the WAL replay "
+                                         "differs from the live manifest")
+                replays += 1
+            traces[kind] = ingest_trace(fleet, fleet.result())
+            if backend is not None:
+                compactions = len(fleet.tenant("t0").compaction_indices)
+                backend.close()
+    if traces["disk"] != traces["memory"] or not compactions:
+        raise AssertionError("ingest_parity: the durable DiskBackend's trace "
+                             "differs from the InMemoryBackend's, or it "
+                             "never compacted")
+    emit("ingest_parity", case="DiskBackend(durable=True) 20,000 x 8",
+         events=len(stream), replays_equal_live=replays,
+         compactions=compactions, trace_equals_memory=True)
+
+
+def phase_ingest_parity(device) -> dict:
+    """(a) BENCH_ingest.json's deterministic fields on the card, at its
+    full and smoke configs; (b) at the smoke config, run_batched on both
+    lanes and the unbounded incremental fleet equal ``run``; (c) the
+    smoke config's card traces equal the CPU's; (d) a durable
+    DiskBackend's WAL replays to the live manifest after every event.
+    Returns the card's launches."""
+    import torch
+    from repro_torch import core, engine
+    cpu = torch.device("cpu")
+    bench = json.loads((ROOT / "BENCH_ingest.json").read_text())
+    counters = kernel_counters()
+    launched = {k: 0 for k in counters}
+    t0 = time.perf_counter()
+
+    def counted(dev, fn):
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn()
+        for k, c in counters.items():
+            if dev.type == "cuda":
+                launched[k] += c.launches - before[k]
+            elif c.launches != before[k]:
+                raise AssertionError("ingest_parity: a CPU run launched a "
+                                     "kernel")
+        return out
+
+    def build(data, cfg, arm, **kw):
+        return engine.FleetEngine(
+            {tid: ingest_tenant(data[tid], cfg["alpha"], cfg["delta"],
+                                cfg["partitions"], arm, **kw)
+             for tid in data}, engine.UnlimitedScheduler())
+
+    # (a) and (c): every scenario x arm with FleetEngine.run, at the
+    # file's full config and (card and CPU) at its smoke config.
+    sections = {"full": (bench["config"], {
+        r["scenario"]: (r["arms"], r["cost_ratio_vs_debt_aware"])
+        for r in bench["results"]}),
+        "smoke": (bench["ingest_smoke"]["config"], {
+            s: (None, ratio) for s, ratio in
+            bench["ingest_smoke"]["cost_ratio_vs_debt_aware"].items()})}
+    def same_as_run(data, cfg, scenario, stream, want) -> int:
+        """(b) run_batched on both lanes and the unbounded incremental
+        fleet (rows_per_tick None, both planner lanes) equal run's debt
+        arm; returns the migrations checked."""
+        migrations = 0
+        for lane in ("fleet_scan", "decision_fused"):
+            fleet = build(data, cfg, "debt")
+            res = counted(device, lambda: fleet.run_batched(stream,
+                                                            compute=lane))
+            if ingest_trace(fleet, res) != want:
+                raise AssertionError(f"ingest_parity: {scenario}: "
+                                     f"run_batched({lane}) differs from run")
+        for planner in ("move_score", "decision_fused"):
+            fleet = build(data, cfg, "debt", incremental=True,
+                          reorg_compute=planner)
+            res = counted(device, lambda: fleet.run(stream))
+            if ingest_trace(fleet, res) != want:
+                raise AssertionError(f"ingest_parity: {scenario}: the "
+                                     f"incremental fleet ({planner}) differs "
+                                     f"from the atomic one")
+            for tid in fleet.tenant_ids:
+                for m in fleet.tenant(tid).reorg_executor.migrations:
+                    migrations += 1
+                    if not (m.completed_at == m.begun_at
+                            and m.charged == m.alpha):
+                        raise AssertionError(f"ingest_parity: {scenario} "
+                                             f"{tid}: a migration did not "
+                                             f"close on alpha at once")
+        emit("ingest_parity", case="run_batched x 2 lanes, incremental x 2 "
+             "planners == run", scenario=scenario, bitwise_equal=True,
+             seconds=time.perf_counter() - t0)
+        return migrations
+
+    checked = migrations = 0
+    for section, (cfg, want) in sections.items():
+        data, lo, hi = ingest_tables(device, cfg["tenants"], cfg["rows"],
+                                     cfg["columns"])
+        host = ({tid: d.cpu() for tid, d in data.items()}
+                if section == "smoke" else None)
+        for scenario in sorted(core.INGEST_SCENARIOS):
+            stream = core.make_ingest_scenario(
+                scenario, lo, hi, num_tenants=cfg["tenants"],
+                queries_per_tenant=cfg["queries_per_tenant"],
+                seed=INGEST_SCENARIO_SEED)
+            arms_want, ratio_want = want[scenario]
+            combined, got = {}, {}
+            for arm in INGEST_ARMS:
+                fleet = build(data, cfg, arm)
+                res = counted(device, lambda: fleet.run(stream))
+                got[arm] = ingest_fields(res, fleet)
+                combined[arm] = res.total_cost
+                if arm == "never" and got[arm]["compactions"]:
+                    raise AssertionError(f"ingest_parity: {scenario}: the "
+                                         f"never arm compacted")
+                if section == "smoke" and arm == "debt":
+                    want_debt = ingest_trace(fleet, res)
+                if host is not None:
+                    cpu_fleet = build(host, cfg, arm)
+                    cpu_res = counted(cpu, lambda: cpu_fleet.run(stream))
+                    if (ingest_trace(cpu_fleet, cpu_res)
+                            != ingest_trace(fleet, res)):
+                        raise AssertionError(f"ingest_parity: {scenario} "
+                                             f"{arm}: card and CPU traces "
+                                             f"differ")
+                del fleet
+            ratio = {arm: round(combined[arm] / max(combined["debt"], 1e-12),
+                                4) for arm in ("never", "always")}
+            bad = [] if ratio == ratio_want else [("ratio", ratio,
+                                                   ratio_want)]
+            if arms_want is not None:
+                bad += [(arm, f, got[arm][f], arms_want[arm][f])
+                        for arm in INGEST_ARMS for f in INGEST_FIELDS
+                        if got[arm][f] != arms_want[arm][f]]
+                checked += len(INGEST_ARMS) * len(INGEST_FIELDS)
+            checked += len(ratio)
+            emit("ingest_parity", case=f"BENCH_ingest.json {section}",
+                 scenario=scenario, arms=got, cost_ratio_vs_debt_aware=ratio,
+                 equal_to_file=not bad, card_equals_cpu=host is not None,
+                 seconds=time.perf_counter() - t0)
+            if bad:
+                raise AssertionError(f"ingest_parity: {section} {scenario} "
+                                     f"differs from BENCH_ingest.json: {bad}")
+            if section == "smoke" and scenario in ("trickle", "mixed_rw",
+                                                   "bulk_load"):
+                migrations += same_as_run(data, cfg, scenario, stream,
+                                          want_debt)
+        del data
+    # (d) DiskBackend(durable=True) at 20,000 x 8.
+    ingest_durable_parity(device, counted)
+    if not (migrations and all(launched[k] for k in (
+            "pruning", "fleet_scan", "decision_fused", "move_score"))):
+        raise AssertionError(f"ingest_parity: the card runs did not launch "
+                             f"every fleet kernel, or planned no migration: "
+                             f"{launched}")
+    emit("ingest_parity", fields_equal_to_file=checked,
+         incremental_migrations=migrations, launches_card=launched,
+         seconds=time.perf_counter() - t0)
+    return launched
+
+
+class IngestMeter:
+    """Times every tenant's ``ingest`` and splits the pruning kernel's
+    launches of a run by caller: the serve path (``backend.serve``), the
+    debt meter (``DebtMeter.observe``: one Q = 1 scan per served query)
+    and the decision (``policy.decide``: estimates, the layout manager's
+    cost vectors).  It wraps the engines' own objects and launches
+    nothing."""
+
+    def __init__(self, fleet):
+        from repro_torch.kernels.pruning import pruning
+        self.counter = pruning.scan_matrix
+        self.pruning = {"serve": 0, "debt_meter": 0, "decide": 0}
+        self.ingest_seconds = self.debt_seconds = 0.0
+        for tid in fleet.tenant_ids:
+            eng = fleet.tenant(tid)
+            eng.ingest = self._timed(eng.ingest, None)
+            eng.backend.serve = self._timed(eng.backend.serve, "serve")
+            eng._debt.observe = self._timed(eng._debt.observe, "debt_meter")
+            eng.policy.decide = self._timed(eng.policy.decide, "decide")
+
+    def _timed(self, inner, caller):
+        def call(*args):
+            before = self.counter.launches
+            t0 = time.perf_counter()
+            out = inner(*args)
+            if caller is None:
+                self.ingest_seconds += time.perf_counter() - t0
+            elif caller == "debt_meter":
+                self.debt_seconds += time.perf_counter() - t0
+            if caller is not None:
+                self.pruning[caller] += self.counter.launches - before
+            return out
+        return call
+
+
+def final_plane_kernels(device, fleet, queries) -> dict:
+    """pruning, fleet_scan and decision_fused against their plain versions
+    on the run's final planes: the FleetMatrix plane with 16 frames for
+    every tenant row, one tenant's StateMatrix plane with a 256-query
+    block (``run``'s block estimate) and one query (an estimate), and its
+    serving shadow with one query (serve); bitwise, then timed."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decision_fused import decision_fused, ref as dref
+    from repro_torch.kernels.fleet_scan import fleet_scan, ref as fref
+    from repro_torch.kernels.pruning import pruning, ref as pref
+    fm = fleet.fleet_matrix
+    lo, hi = fleet_frames(fm, device)
+    got = decision_fused.fused_decision(lo, hi, fm._mins, fm._maxs)[0]
+    want = dref.fused_decision(lo, hi, fm._mins, fm._maxs)[0]
+    fmin, fmax = fm._mins.flatten(1, 2), fm._maxs.flatten(1, 2)
+    frames_equal = all(torch.equal(
+        fleet_scan.scan_fleet(lo[k], hi[k], fmin, fmax),
+        fref.scan_fleet(lo[k], hi[k], fmin, fmax)) for k in range(len(lo)))
+    if not (torch.equal(got, want) and frames_equal):
+        raise AssertionError(f"{INGEST_CELL}: a fleet kernel disagrees with "
+                             f"its plain version at the final plane")
+    out = {"fleet_plane": list(fm._mins.shape),
+           **time_fleet_kernels(device, lo, hi, fm._mins, fm._maxs)}
+    eng = fleet.tenant(fleet.tenant_ids[0])
+    m = eng.backend.state_matrix
+    n = len(m)
+    smin, smax = m._mins[:n].flatten(0, 1), m._maxs[:n].flatten(0, 1)
+    shadow = eng.backend._serving_cache
+    q_lo = np.stack([q.lo for q in queries[:256]])
+    q_hi = np.stack([q.hi for q in queries[:256]])
+    bounds = torch.as_tensor(np.stack([q_lo, q_hi]), device=device)
+    shapes = {"estimate block 256 x n*P_cap": (bounds[0], bounds[1], smin,
+                                               smax),
+              "estimate 1 x n*P_cap": (bounds[0, :1], bounds[1, :1], smin,
+                                       smax),
+              "serve 1 x P": (bounds[0, :1], bounds[1, :1], shadow[0],
+                              shadow[1])}
+    for name, (a, b, c, d) in shapes.items():
+        if not torch.equal(pruning.scan_matrix(a, b, c, d),
+                           pref.scan_matrix(a, b, c, d)):
+            raise AssertionError(f"{INGEST_CELL}: pruning disagrees with its "
+                                 f"plain version at {name}")
+        q, (p, cols) = a.shape[0], c.shape
+        out[f"pruning {name}"] = {
+            "q": q, "p": p, "c": cols,
+            "ms": cuda_time_ms(lambda: pruning.scan_matrix(a, b, c, d), 200),
+            "plain_ms": cuda_time_ms(lambda: pref.scan_matrix(a, b, c, d),
+                                     200), **scan_bound(q, p, cols)}
+    return out
+
+
+def phase_ingest_full(device, rows: int = SF1_ROWS,
+                      tenants: int = INGEST_TENANTS,
+                      queries: int = 1_000) -> dict:
+    """fleet16-sf1-oreo-ingest-mixed_rw: benchmarks/bench_ingest.py's
+    config (alpha 4, delta 10, P 16, window 80, gen_every 40) with the
+    mixed_rw scenario (seed 7; an append after every 8th query, 50 of
+    8,000 rows, so 37,508 rows at 6,001,215) over tenants of SF 1, cut
+    from 16 to ``INGEST_TENANTS`` to keep the whole script near half its
+    time limit; arms never, always, debt and debt/incremental under
+    run_batched's decision_fused lane.  Returns each arm's launches."""
+    import torch
+    from repro_torch import core, engine
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    tables = fleet_tables(device, tenants, rows, 8)
+    torch.cuda.synchronize()
+    table_seconds = time.perf_counter() - t0
+    lo = torch.stack([d.amin(0) for d in tables.values()]).amin(0)
+    hi = torch.stack([d.amax(0) for d in tables.values()]).amax(0)
+    t0 = time.perf_counter()
+    stream = core.make_ingest_scenario(
+        "mixed_rw", lo.cpu().numpy(), hi.cpu().numpy(), num_tenants=tenants,
+        queries_per_tenant=queries, seed=INGEST_SCENARIO_SEED,
+        batch_rows=INGEST_BATCH_ROWS)
+    stream_seconds = time.perf_counter() - t0
+    appended = stream.total_appended_rows
+    emit("ingest_full", cell=INGEST_CELL, tenants=tenants,
+         reduced={"tenants": f"16 -> {tenants}"}, rows=rows,
+         columns=8, queries_per_tenant=queries, scenario="mixed_rw",
+         batch_rows=INGEST_BATCH_ROWS, events=len(stream),
+         rows_appended=appended, appended_bytes=appended * 8 * 8,
+         table_bytes=sum(d.numel() * 8 for d in tables.values()),
+         table_seconds=table_seconds, stream_seconds=stream_seconds)
+    arms = {"never": ("never", {}), "always": ("always", {}),
+            "debt": ("debt", {}),
+            "debt/incremental": ("debt", {"incremental": True,
+                                          "reorg_compute": "move_score"})}
+    launches, traces = {}, {}
+    for label, (arm, kw) in arms.items():
+        t0 = time.perf_counter()
+        fleet = engine.FleetEngine(
+            {tid: ingest_tenant(tables[tid], 4.0, 10, 16, arm, **kw)
+             for tid in stream.tenant_ids}, engine.UnlimitedScheduler())
+        setup = time.perf_counter() - t0
+        meter = IngestMeter(fleet)
+        res, fields = run_cell(f"{INGEST_CELL} {label}", fleet, stream.events,
+                               "decision_fused", device)
+        stats = ingest_fields(res, fleet)
+        lengths = []
+        for tid in fleet.tenant_ids:
+            backend = fleet.tenant(tid).backend
+            d = backend.delta_log
+            lengths.append(len(backend.data))
+            if d.clustered_len + d.delta_rows != len(backend.data):
+                raise AssertionError(f"{INGEST_CELL} {label}: {tid}'s "
+                                     f"clustered and pending rows do not "
+                                     f"add up to its table")
+        if sum(lengths) != tenants * rows + appended:
+            raise AssertionError(f"{INGEST_CELL} {label}: rows were lost")
+        if arm == "never" and stats["compactions"]:
+            raise AssertionError(f"{INGEST_CELL}: the never arm compacted")
+        if arm == "debt" and not stats["compactions"]:
+            raise AssertionError(f"{INGEST_CELL}: the debt arm never "
+                                 f"compacted")
+        split = dict(meter.pruning)
+        split["other"] = fields["launches"]["pruning"] - sum(split.values())
+        extra = {}
+        if label == "never":
+            extra["kernels_at_final_plane"] = final_plane_kernels(
+                device, fleet, stream.tenant_queries(stream.tenant_ids[0]))
+        traces[label] = ingest_trace(fleet, res)
+        launches[label] = fields["launches"]
+        emit("ingest_full", cell=INGEST_CELL, arm=label, setup_seconds=setup,
+             ingest_seconds=meter.ingest_seconds,
+             debt_meter_seconds=meter.debt_seconds,
+             pruning_by_caller=split, final_table_bytes=sum(lengths) * 8 * 8,
+             final_table_rows=sum(lengths),
+             p_cap=fleet.fleet_matrix.partition_capacity,
+             bench_fields=stats, **fields, **extra)
+        del fleet, res, meter
+        release(device)
+    if traces["debt/incremental"] != traces["debt"]:
+        raise AssertionError(f"{INGEST_CELL}: debt/incremental differs from "
+                             f"debt")
+    emit("ingest_full", cell=INGEST_CELL,
+         incremental_equals_atomic=True, card=card_line())
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The serving substrate: flash attention, parity card against CPU, and the
 # qwen3-1.7b-serve cell
 # ---------------------------------------------------------------------------
@@ -3187,6 +3653,9 @@ def main(argv=None) -> int:
         release(device)
     if "zorder_parity" in phases:
         phase_zorder_parity(device)
+    if "ingest_parity" in phases:
+        phase_ingest_parity(device)
+        release(device)
     runs = {}
     if phases & {"full", "zorder_full"}:
         data, stream = sf10_inputs(device, args.queries)
@@ -3206,6 +3675,10 @@ def main(argv=None) -> int:
         release(device)
     if "serve_full" in phases:
         runs[f"{SERVE_ARCH}-serve"] = {"flash_attention": cell_serve(device)}
+        release(device)
+    if "ingest_full" in phases:
+        for arm, counts in phase_ingest_full(device).items():
+            runs[f"{INGEST_CELL}/{arm}"] = counts
         release(device)
     for name, summary in kernels.items():
         summary["launches"] = (sum(r.get(name, 0) for r in runs.values())

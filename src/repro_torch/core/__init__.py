@@ -29,24 +29,28 @@ from repro_torch.core.mts import (DynamicUMTS, theorem_iv1_bound,
                                   theorem_iv2_bound)
 from repro_torch.core.oreo import OreoConfig, OreoRunner, RunResult
 from repro_torch.core.qdtree import build_default_layout, build_qdtree_layout
-from repro_torch.core.workload import (DRIFT_SCENARIOS, Event, FleetStream,
-                                       IngestEvent, Query, QueryEvent,
-                                       QueryTemplate, WorkloadStream,
-                                       as_event, generate_workload,
-                                       interleave_streams,
-                                       make_drift_scenario, make_templates,
+from repro_torch.core.workload import (DRIFT_SCENARIOS, INGEST_SCENARIOS,
+                                       Event, FleetStream, IngestBatch,
+                                       IngestEvent, IngestStream, Query,
+                                       QueryEvent, QueryTemplate,
+                                       WorkloadStream, as_event,
+                                       generate_workload, interleave_streams,
+                                       make_drift_scenario,
+                                       make_ingest_scenario, make_templates,
                                        stack_queries)
 from repro_torch.core.zorder import build_zorder_layout
 
 __all__ = [
     "CostModel", "DRIFT_SCENARIOS", "DynamicUMTS", "Event", "FleetStream",
-    "IngestEvent", "Layout", "LayoutManager", "LayoutManagerConfig",
+    "INGEST_SCENARIOS", "IngestBatch", "IngestEvent", "IngestStream",
+    "Layout", "LayoutManager", "LayoutManagerConfig",
     "OreoConfig", "OreoRunner", "PartitionMetadata", "Query", "QueryEvent",
     "QueryTemplate", "RunResult", "WorkloadStream", "as_event",
     "build_default_layout", "build_qdtree_layout", "build_zorder_layout",
     "cost_vector", "eval_cost", "eval_cost_states", "eval_skipped",
-    "generate_workload", "interleave_streams", "layout_distance",
-    "make_drift_scenario", "make_generator",
+    "generate_workload", "interleave_streams",
+    "layout_distance", "make_drift_scenario", "make_generator",
+    "make_ingest_scenario",
     "make_templates", "metadata_from_assignment", "partitions_scanned",
     "stack_queries", "theorem_iv1_bound", "theorem_iv2_bound",
     "baselines", "cost_model", "layout_manager", "layouts", "mts", "oreo",

@@ -11,11 +11,16 @@ event envelope (:class:`QueryEvent`, :class:`IngestEvent`) and the
 interleaved multi-tenant :class:`FleetStream`\\ s -- sudden template shift,
 gradual interpolated drift, cyclic/diurnal rotation, flash-crowd burst and
 template churn -- the workload conditions a multi-tenant fleet
-(:class:`repro_torch.engine.FleetEngine`) is exercised under.
+(:class:`repro_torch.engine.FleetEngine`) is exercised under -- and the
+**ingest-scenario registry** (:data:`INGEST_SCENARIOS`): mixed read/write
+:class:`IngestStream`\\ s whose appended :class:`IngestBatch`\\ es land as
+delta partitions (:mod:`repro_torch.engine.ingest`).
 
-Queries stay on the host: their bounds are ``(C,)`` float64 numpy arrays,
-drawn from numpy ``Generator``s seeded exactly as the reference package
-draws them, so the same seed gives the same stream.
+Queries and appended batches stay on the host: query bounds are ``(C,)``
+float64 numpy arrays and batches ``(N, C)`` ones, drawn from numpy
+``Generator``s seeded exactly as the reference package draws them, so the
+same seed gives the same stream.  A batch goes to the device once, when
+an engine appends it.
 """
 from __future__ import annotations
 
@@ -67,12 +72,12 @@ class QueryEvent(NamedTuple):
 class IngestEvent(NamedTuple):
     """One tenant's append batch, addressed to the fleet.
 
-    Only the type is here: streaming ingest is a later slice of the port,
-    and a fleet that meets one of these raises ``NotImplementedError``.
+    Tuple-compatible with the ``(tenant_id, IngestBatch)`` pair, like
+    :class:`QueryEvent`.
     """
 
     tenant_id: str
-    batch: object
+    batch: "IngestBatch"
 
 
 #: The fleet's one request envelope.
@@ -82,8 +87,9 @@ Event = Union[QueryEvent, IngestEvent]
 def as_event(obj) -> Event:
     """Coerce a request into the typed :data:`Event` union.
 
-    Typed events pass through untouched.  A bare ``(tenant_id, Query)``
-    pair still works but raises a :class:`DeprecationWarning`.
+    Typed events pass through untouched.  Bare ``(tenant_id, Query)`` /
+    ``(tenant_id, IngestBatch)`` pairs still work but raise a
+    :class:`DeprecationWarning`.
     """
     if isinstance(obj, (QueryEvent, IngestEvent)):
         return obj
@@ -95,9 +101,15 @@ def as_event(obj) -> Event:
                 "pass repro_torch.core.workload.QueryEvent(tenant_id, query)",
                 DeprecationWarning, stacklevel=3)
             return QueryEvent(str(tid), payload)
+        if isinstance(payload, IngestBatch):
+            warnings.warn(
+                "bare (tenant_id, IngestBatch) event tuples are deprecated; "
+                "pass repro_torch.core.workload.IngestEvent(tenant_id, "
+                "batch)", DeprecationWarning, stacklevel=3)
+            return IngestEvent(str(tid), payload)
     raise TypeError(
         f"not a fleet event: {obj!r} (expected QueryEvent, IngestEvent, or "
-        f"a (tenant_id, Query) pair)")
+        f"a (tenant_id, Query|IngestBatch) pair)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -491,6 +503,246 @@ def template_churn(col_lo: np.ndarray, col_hi: np.ndarray,
                                                 rng)
     return FleetStream("template_churn", interleave_streams(per_tenant),
                        per_tenant)
+
+
+# ---------------------------------------------------------------------------
+# Streaming ingest scenarios (mixed read/write event streams)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class IngestBatch:
+    """One append event: rows to land as an unclustered delta partition."""
+
+    rows: np.ndarray            # (N, C) host float64; uploaded on append
+    batch_id: int = -1
+
+    @property
+    def num_rows(self) -> int:
+        return int(len(self.rows))
+
+
+@dataclasses.dataclass
+class IngestStream:
+    """An interleaved multi-tenant stream mixing queries and appends.
+
+    ``events`` is the fleet-level arrival order of typed :data:`Event`
+    envelopes (:class:`QueryEvent` / :class:`IngestEvent`, each
+    tuple-compatible with the legacy ``(tenant_id, payload)`` pairs);
+    ``per_tenant`` preserves each tenant's own event order (the golden
+    reference for a standalone replay of that tenant).
+    """
+
+    scenario: str
+    events: List[Event]
+    per_tenant: Dict[str, List[object]]
+
+    def __len__(self) -> int:
+        return len(self.events)
+
+    def __iter__(self) -> Iterator[Event]:
+        return iter(self.events)
+
+    @property
+    def tenant_ids(self) -> List[str]:
+        return list(self.per_tenant)
+
+    def tenant_queries(self, tenant_id: str) -> List[Query]:
+        return [e for e in self.per_tenant[tenant_id]
+                if isinstance(e, Query)]
+
+    def tenant_batches(self, tenant_id: str) -> List[IngestBatch]:
+        return [e for e in self.per_tenant[tenant_id]
+                if isinstance(e, IngestBatch)]
+
+    @property
+    def total_appended_rows(self) -> int:
+        return sum(e[1].num_rows for e in self.events
+                   if isinstance(e[1], IngestBatch))
+
+
+#: name -> scenario generator; populated by :func:`ingest_scenario` below.
+INGEST_SCENARIOS: Dict[str, Callable[..., IngestStream]] = {}
+
+
+def ingest_scenario(name: str, forecastable: bool = False, **meta):
+    """Register a named mixed read/write scenario generator (metadata
+    lands in :data:`SCENARIO_INFO`, exactly like :func:`drift_scenario`)."""
+    def deco(fn):
+        INGEST_SCENARIOS[name] = fn
+        SCENARIO_INFO[name] = ScenarioInfo(name=name, family="ingest",
+                                           forecastable=forecastable, **meta)
+        fn.scenario_name = name
+        return fn
+    return deco
+
+
+def make_ingest_scenario(name: str, col_lo: np.ndarray, col_hi: np.ndarray,
+                         num_tenants: int = 3,
+                         queries_per_tenant: int = 1500,
+                         seed: int = 0, **kwargs) -> IngestStream:
+    """Instantiate a registered ingest scenario by name."""
+    if name not in INGEST_SCENARIOS:
+        raise KeyError(f"unknown ingest scenario {name!r}; "
+                       f"known: {sorted(INGEST_SCENARIOS)}")
+    return INGEST_SCENARIOS[name](
+        col_lo=col_lo, col_hi=col_hi, num_tenants=num_tenants,
+        queries_per_tenant=queries_per_tenant, seed=seed, **kwargs)
+
+
+def interleave_event_streams(per_tenant: Dict[str, List[object]],
+                             weight_fn: Optional[Callable[[str, int],
+                                                          float]] = None,
+                             ) -> List[Event]:
+    """Smooth-WRR interleave of per-tenant *mixed* event lists.
+
+    Identical discipline to :func:`interleave_streams` (same credits, same
+    tie-breaking), generalized from query lists to lists that may also
+    hold :class:`IngestBatch` events.  Per-tenant event order is always
+    preserved.
+    """
+    tids = sorted(per_tenant)
+    cursors = {tid: 0 for tid in tids}
+    credits = {tid: 0.0 for tid in tids}
+    events: List[Event] = []
+    total = sum(len(s) for s in per_tenant.values())
+    for _ in range(total):
+        live = [t for t in tids if cursors[t] < len(per_tenant[t])]
+        weights = {t: (weight_fn(t, cursors[t]) if weight_fn else 1.0)
+                   for t in live}
+        for t in live:
+            credits[t] += weights[t]
+        pick = max(live, key=lambda t: credits[t])
+        credits[pick] -= sum(weights.values())
+        payload = per_tenant[pick][cursors[pick]]
+        events.append(QueryEvent(pick, payload)
+                      if isinstance(payload, Query)
+                      else IngestEvent(pick, payload))
+        cursors[pick] += 1
+    return events
+
+
+def _sample_batch(rng: np.random.Generator, col_lo: np.ndarray,
+                  col_hi: np.ndarray, rows: int) -> IngestBatch:
+    """Uniform rows over the full domain: maximally unclustered appends
+    (a delta partition's bounds then span whatever arrived, so queries
+    can rarely skip it — the worst case the debt meter prices)."""
+    return IngestBatch(rows=rng.uniform(col_lo, col_hi,
+                                        size=(rows, col_lo.shape[0])))
+
+
+def _weave(queries: Sequence[Query],
+           batch_after: Dict[int, List[IngestBatch]]) -> List[object]:
+    """Per-tenant event list: each query, with any batches scheduled
+    after it inserted in order (index -1 batches lead the stream)."""
+    events: List[object] = list(batch_after.get(-1, []))
+    for k, q in enumerate(queries):
+        events.append(q)
+        events.extend(batch_after.get(k, []))
+    return events
+
+
+@ingest_scenario("trickle")
+def trickle_ingest(col_lo: np.ndarray, col_hi: np.ndarray,
+                   num_tenants: int = 3, queries_per_tenant: int = 1500,
+                   seed: int = 0, every: int = 10, batch_rows: int = 40,
+                   ) -> IngestStream:
+    """Steady trickle: a small append every ``every`` queries, one stable
+    query template — the base case for debt-metered compaction."""
+    per_tenant: Dict[str, List[object]] = {}
+    for t, rng in enumerate(_scenario_rngs(seed, num_tenants)):
+        tmpls = make_templates(1, col_lo.shape[0], rng)
+        stream = _stream_from_plan([(tmpls[0], queries_per_tenant)], tmpls,
+                                   col_lo, col_hi, rng)
+        batches = {k: [_sample_batch(rng, col_lo, col_hi, batch_rows)]
+                   for k in range(every - 1, queries_per_tenant, every)}
+        per_tenant[f"t{t}"] = _weave(stream.queries, batches)
+    return IngestStream("trickle", interleave_event_streams(per_tenant),
+                        per_tenant)
+
+
+@ingest_scenario("append_heavy")
+def append_heavy(col_lo: np.ndarray, col_hi: np.ndarray,
+                 num_tenants: int = 3, queries_per_tenant: int = 1500,
+                 seed: int = 0, every: int = 4, batch_rows: int = 80,
+                 ) -> IngestStream:
+    """Write-dominated: frequent, larger appends keep delta partitions
+    piling on faster than any single compaction clears them."""
+    per_tenant: Dict[str, List[object]] = {}
+    for t, rng in enumerate(_scenario_rngs(seed, num_tenants)):
+        tmpls = make_templates(1, col_lo.shape[0], rng)
+        stream = _stream_from_plan([(tmpls[0], queries_per_tenant)], tmpls,
+                                   col_lo, col_hi, rng)
+        batches = {k: [_sample_batch(rng, col_lo, col_hi, batch_rows)]
+                   for k in range(every - 1, queries_per_tenant, every)}
+        per_tenant[f"t{t}"] = _weave(stream.queries, batches)
+    return IngestStream("append_heavy", interleave_event_streams(per_tenant),
+                        per_tenant)
+
+
+@ingest_scenario("mixed_rw", shift_window=(0.4, 0.6))
+def mixed_rw(col_lo: np.ndarray, col_hi: np.ndarray, num_tenants: int = 3,
+             queries_per_tenant: int = 1500, seed: int = 0,
+             every: int = 8, batch_rows: int = 50) -> IngestStream:
+    """Reads drift while writes trickle: a mid-stream template shift makes
+    drift reorgs and debt compactions compete for the same α budget."""
+    per_tenant: Dict[str, List[object]] = {}
+    for t, rng in enumerate(_scenario_rngs(seed, num_tenants)):
+        tmpls = make_templates(2, col_lo.shape[0], rng)
+        shift = int(queries_per_tenant * rng.uniform(0.4, 0.6))
+        stream = _stream_from_plan(
+            [(tmpls[0], shift), (tmpls[1], queries_per_tenant - shift)],
+            tmpls, col_lo, col_hi, rng)
+        batches = {k: [_sample_batch(rng, col_lo, col_hi, batch_rows)]
+                   for k in range(every - 1, queries_per_tenant, every)}
+        per_tenant[f"t{t}"] = _weave(stream.queries, batches)
+    return IngestStream("mixed_rw", interleave_event_streams(per_tenant),
+                        per_tenant)
+
+
+@ingest_scenario("ingest_burst")
+def ingest_burst(col_lo: np.ndarray, col_hi: np.ndarray,
+                 num_tenants: int = 3, queries_per_tenant: int = 1500,
+                 seed: int = 0, burst_start: float = 0.3,
+                 burst_end: float = 0.5, every: int = 3,
+                 batch_rows: int = 100) -> IngestStream:
+    """A concentrated load window then a long read-only tail: everything
+    appended lands inside ``[burst_start, burst_end)`` of the stream."""
+    per_tenant: Dict[str, List[object]] = {}
+    lo_k = int(queries_per_tenant * burst_start)
+    hi_k = int(queries_per_tenant * burst_end)
+    for t, rng in enumerate(_scenario_rngs(seed, num_tenants)):
+        tmpls = make_templates(1, col_lo.shape[0], rng)
+        stream = _stream_from_plan([(tmpls[0], queries_per_tenant)], tmpls,
+                                   col_lo, col_hi, rng)
+        batches = {k: [_sample_batch(rng, col_lo, col_hi, batch_rows)]
+                   for k in range(lo_k, hi_k, every)}
+        per_tenant[f"t{t}"] = _weave(stream.queries, batches)
+    return IngestStream("ingest_burst", interleave_event_streams(per_tenant),
+                        per_tenant)
+
+
+@ingest_scenario("bulk_load")
+def bulk_load(col_lo: np.ndarray, col_hi: np.ndarray, num_tenants: int = 3,
+              queries_per_tenant: int = 1500, seed: int = 0,
+              load_rows: int = 600,
+              load_points: Tuple[float, ...] = (0.2, 0.5, 0.9),
+              ) -> IngestStream:
+    """A few large loads at fixed points — the last one near the end of
+    the stream, where eagerly reclustering can never pay for itself (the
+    case that separates debt-aware from always-recluster)."""
+    per_tenant: Dict[str, List[object]] = {}
+    for t, rng in enumerate(_scenario_rngs(seed, num_tenants)):
+        tmpls = make_templates(1, col_lo.shape[0], rng)
+        stream = _stream_from_plan([(tmpls[0], queries_per_tenant)], tmpls,
+                                   col_lo, col_hi, rng)
+        batches: Dict[int, List[IngestBatch]] = {}
+        for frac in load_points:
+            k = min(int(queries_per_tenant * frac), queries_per_tenant - 1)
+            batches.setdefault(k, []).append(
+                _sample_batch(rng, col_lo, col_hi, load_rows))
+        per_tenant[f"t{t}"] = _weave(stream.queries, batches)
+    return IngestStream("bulk_load", interleave_event_streams(per_tenant),
+                        per_tenant)
 
 
 def queried_column_histogram(queries: Sequence[Query],

@@ -21,7 +21,12 @@ zone maps on the device; ``DiskBackend`` keeps one versioned
 ``FleetEngine`` over such engines) executes each reorganization as a
 planned migration of micro-moves (:mod:`repro_torch.engine.reorg`),
 serving hybrid zone maps while rows move; the planner orders the moves
-with the move-score kernel.
+with the move-score kernel.  ``LayoutEngine(..., ingest=IngestConfig())``
+opens the write path (:mod:`repro_torch.engine.ingest`): ``engine.ingest(
+rows)`` (or an ``IngestEvent`` in a fleet's stream) appends rows as delta
+partitions, and a clustering-debt meter charges compactions;
+``DiskBackend(..., durable=True)`` logs every manifest change to a
+crash-safe WAL (:mod:`repro_torch.data.wal`).
 """
 from repro_torch.core.workload import Event, IngestEvent, QueryEvent, as_event
 from repro_torch.engine import compute
@@ -32,6 +37,8 @@ from repro_torch.engine.core import LayoutEngine, StepResult
 from repro_torch.engine.fleet import (FleetEngine, FleetResult,
                                       FleetStepResult)
 from repro_torch.engine.fleet_matrix import FleetMatrix
+from repro_torch.engine.ingest import (DebtMeter, DeltaBatch, DeltaLog,
+                                       IngestConfig)
 from repro_torch.engine.policies import (BatchablePolicy, Decision,
                                          GreedyPolicy, MTSOptimalPolicy,
                                          OfflineOptimalPolicy, OreoPolicy,
@@ -48,9 +55,11 @@ from repro_torch.engine.scheduler import (KConcurrentScheduler,
 from repro_torch.engine.state_matrix import StateMatrix
 
 __all__ = [
-    "BatchablePolicy", "Decision", "DiskBackend", "Event", "FleetEngine",
+    "BatchablePolicy", "DebtMeter", "Decision", "DeltaBatch", "DeltaLog",
+    "DiskBackend", "Event", "FleetEngine",
     "FleetMatrix", "FleetResult", "FleetStepResult", "GreedyPolicy",
-    "InMemoryBackend", "IngestEvent", "KConcurrentScheduler", "LayoutEngine",
+    "InMemoryBackend", "IngestConfig", "IngestEvent", "KConcurrentScheduler",
+    "LayoutEngine",
     "MTSOptimalPolicy", "MicroMove", "MigrationPlan", "MigrationRecord",
     "OfflineOptimalPolicy", "OreoPolicy", "Policy",
     "QueryEvent", "RegretPolicy", "ReorgExecutor", "ReorgScheduler",

@@ -8,6 +8,7 @@ the paper's design where candidate exploration never touches row data.
 """
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import threading
@@ -19,7 +20,8 @@ import torch
 
 from repro_torch.core import layouts as L
 from repro_torch.core import workload as wl
-from repro_torch.data.partition_store import PartitionStore, write_manifest
+from repro_torch.data.partition_store import (PartitionStore, manifest_dict,
+                                              write_manifest)
 
 from . import compute
 from .state_matrix import BlockEstimates, StateMatrix
@@ -91,6 +93,42 @@ class _RegistryMixin:
         self._primed: Optional[tuple] = None
         self._primed_idx: Optional[tuple] = None
         self._lookahead: Optional[BlockEstimates] = None
+        # Streaming ingest (see repro_torch.engine.ingest): pending delta
+        # batches over the growing table, and the device buffer the table
+        # grows in.  None until enable_ingest() / the first append.
+        self._delta = None
+        self._buffer: Optional[torch.Tensor] = None
+
+    def _append_rows(self, rows) -> Tuple[torch.Tensor, int]:
+        """Append one batch to the table on its device; returns the batch as
+        a device tensor and the row it starts at.
+
+        The table grows in a buffer with spare capacity (doubling when
+        full), and ``self.data`` is a view of its filled prefix: an append
+        within capacity copies only the batch, and never writes a row an
+        earlier view of the table can see.  The caller's own table tensor
+        is never written.
+        """
+        data = self.data
+        rows = torch.as_tensor(rows, dtype=torch.float64, device=data.device)
+        if rows.ndim != 2 or rows.shape[1] != data.shape[1]:
+            raise ValueError(f"an ingest batch must be (N, {data.shape[1]}), "
+                             f"got {tuple(rows.shape)}")
+        n, add = len(data), len(rows)
+        buf = self._buffer
+        if buf is None or n + add > len(buf):
+            buf = torch.empty((max(n + add, 2 * n), data.shape[1]),
+                              dtype=data.dtype, device=data.device)
+            buf[:n] = data
+            self._buffer = buf
+        buf[n:n + add] = rows
+        self.data = buf[:n + add]
+        return rows, n
+
+    @property
+    def delta_log(self):
+        """The pending-delta state (None until ``enable_ingest``)."""
+        return self._delta
 
     def open_lookahead(self, queries: Sequence[wl.Query], q_lo: np.ndarray,
                        q_hi: np.ndarray) -> BlockEstimates:
@@ -236,6 +274,9 @@ class InMemoryBackend(_RegistryMixin):
         self._serve_memo: Optional[tuple] = None
         self._shadow_slot: Optional[tuple] = None   # (plane version, slot)
         self._migration = None                      # in-flight MigrationPlan
+        # The delta-free base zone maps the composed serving state is built
+        # from (see enable_ingest); every path is untouched without ingest.
+        self._ingest_base: Optional[L.PartitionMetadata] = None
 
     def prepare(self, state_id: int) -> None:
         # In-memory reorganization is instantaneous; nothing to overlap.
@@ -257,20 +298,94 @@ class InMemoryBackend(_RegistryMixin):
         self._matrix.register(self.SERVING_SHADOW, meta)
 
     def _install_base_meta(self, meta: L.PartitionMetadata) -> None:
-        """Install a base (delta-free) serving state.
+        """Install a delta-free base state, composing pending deltas on top.
 
-        Every serving change goes through here.  Streaming ingest composes
-        its pending delta partitions on top of ``meta`` at this point; with
-        no ingest the served state *is* ``meta``.
+        With ingest disabled (or zero pending batches) the composed state
+        *is* ``meta`` — the same object — so the serving plane, the shadow
+        registration and every downstream estimate are bit-identical to
+        the paths without ingest.
         """
-        self._install_serving_meta(meta)
+        self._ingest_base = meta
+        d = self._delta
+        self._install_serving_meta(meta if d is None else d.compose(meta))
 
     def _activate_layout(self, layout: L.Layout) -> None:
         self._serving = layout
-        self._install_base_meta(layout.materialize(self.data))
+        d = self._delta
+        if d is not None and d.pending:
+            # An atomic (re)materialization rewrites the *grown* table:
+            # every pending delta batch is routed in and absorbed.
+            layout.true_meta = None
+            meta = layout.materialize(self.data)
+            d.absorb_up_to(len(self.data))
+        else:
+            meta = layout.materialize(self.data)
+        self._install_base_meta(meta)
 
     def activate(self, state_id: int) -> None:
         self._activate_layout(self._layouts[state_id])
+
+    # -- streaming ingest (see repro_torch.engine.ingest) ---------------
+    def enable_ingest(self):
+        """Open the write path: appended rows land as delta partitions."""
+        if self._delta is None:
+            from .ingest import DeltaLog
+            self._delta = DeltaLog(len(self.data))
+        return self._delta
+
+    @property
+    def ingest_base_meta(self) -> Optional[L.PartitionMetadata]:
+        """Zone maps of the clustered base under the composed deltas."""
+        return self._ingest_base
+
+    def ingest_rows(self, rows):
+        """Append one batch as an unclustered delta partition.
+
+        ``rows`` (host array or tensor) goes to the table's device once.
+        The batch is visible to scans immediately: its exact zone maps are
+        composed onto the serving state and re-registered through the
+        StateMatrix listener events (bumping the plane's version, so no
+        estimate scanned before the append is used after it), and an
+        attached FleetMatrix keeps scoring this (now delta-bearing) tenant
+        in the fused pass.
+        """
+        d = self._delta
+        if d is None:
+            raise RuntimeError("enable_ingest() first")
+        rows, start = self._append_rows(rows)
+        batch = d.append(rows, start)
+        # Exact (materialized) zone maps are stale for the grown table;
+        # estimated candidate metadata is sample-based and untouched.
+        for lay in self._layouts.values():
+            lay.true_meta = None
+        if self._serving is not None:
+            self._serving.true_meta = None
+            self._install_serving_meta(d.compose(self._ingest_base))
+        return batch
+
+    def delta_source(self):
+        """(assignment, meta) of the hybrid delta-bearing source state.
+
+        What the migration planner diffs a compaction (or a drift reorg
+        with deltas pending) against: clustered base partitions plus one
+        pseudo-partition per delta batch, the assignment an ``(N,)`` int64
+        tensor on the table's device.  None with no pending deltas — the
+        plain planning path stays bit-identical.
+        """
+        d = self._delta
+        if d is None or not d.pending:
+            return None
+        base_len = d.clustered_len
+        serving = self._serving
+        if serving is not None and serving.route is not None:
+            base_assign = serving.route(self.data[:base_len]).to(torch.int64)
+        else:
+            base_assign = torch.zeros(base_len, dtype=torch.int64,
+                                      device=self.data.device)
+        base = self._ingest_base
+        assign = d.source_assignment(base_assign, base.num_partitions,
+                                     len(self.data))
+        return assign, d.compose(base)
 
     @property
     def serving_state(self) -> Optional[int]:
@@ -299,6 +414,13 @@ class InMemoryBackend(_RegistryMixin):
         if self._migration is not None:
             raise RuntimeError("a migration is already in flight")
         self._migration = plan
+        if self._delta is not None:
+            # The plan routed the table as of planning time: those rows
+            # (pending deltas included — they are source pseudo-partitions
+            # of the plan) now belong to the migration, and its hybrid
+            # zone maps track them partition by partition.  Batches
+            # appended mid-flight stack as fresh deltas on top.
+            self._delta.absorb_up_to(len(plan.target_assignment))
 
     def apply_migration(self, hybrid_meta: L.PartitionMetadata,
                         newly_done: Sequence[int]) -> None:
@@ -315,7 +437,15 @@ class InMemoryBackend(_RegistryMixin):
         same path :meth:`activate` takes (bitwise the atomic end state,
         even if the target state was evicted mid-flight)."""
         self._migration = None
-        self._activate_layout(plan.target)
+        d = self._delta
+        if d is not None:
+            # The completed target covers exactly the rows the plan
+            # routed; mid-flight batches stay pending delta partitions.
+            d.absorb_up_to(len(plan.target_assignment))
+            self._serving = plan.target
+            self._install_base_meta(plan.target_meta)
+        else:
+            self._activate_layout(plan.target)
 
     def estimate_costs(self, state_ids: Sequence[int],
                        query: wl.Query) -> Dict[int, float]:
@@ -401,17 +531,20 @@ class DiskBackend(_RegistryMixin):
     routes and gathers it there (on the writer thread, for a background
     rewrite) and copies each partition to the host once.  A rewrite that
     raises is re-raised by :meth:`activate`, so a failed write is never
-    served.  The crash-safe manifest log (``durable=True``) and streaming
-    ingest belong to a later slice of the port and raise
-    :class:`NotImplementedError`.
+    served.
+
+    ``durable=True`` logs every manifest mutation — initial write, layout
+    swap, delta append, migration micro-batch — to a crash-safe manifest
+    WAL (:class:`repro_torch.data.wal.ManifestWAL`, snapshots every
+    ``wal_snapshot_every`` records) *before* it takes effect, so
+    :meth:`recover_state` replays to a bitwise-identical manifest.
+    Streaming ingest (:meth:`enable_ingest`) appends rows to the device
+    table and writes each batch as an on-disk delta file.
     """
 
     def __init__(self, data: torch.Tensor, root: str, compress: bool = True,
-                 background: bool = True, durable: bool = False):
-        if durable:
-            raise NotImplementedError(
-                "DiskBackend(durable=True) is not ported yet (ROADMAP.md "
-                "queue 1 item 7)")
+                 background: bool = True, durable: bool = False,
+                 wal_snapshot_every: int = 64):
         if not isinstance(data, torch.Tensor) or data.dtype != torch.float64:
             raise TypeError("DiskBackend needs the table as a float64 "
                             "tensor on its device (see repro_torch.data)")
@@ -432,6 +565,16 @@ class DiskBackend(_RegistryMixin):
         # In-flight incremental migration (see repro_torch.engine.reorg):
         # (plan, partial target store, done mask, hybrid metadata).
         self._migration: Optional[tuple] = None
+        # Streaming ingest: pending delta batches are files under deltas/.
+        self._delta_dir = os.path.join(root, "deltas")
+        #: Crash-safe manifest WAL (``durable=True``): every manifest
+        #: mutation is logged *before* it takes effect, with periodic
+        #: snapshots, so recovery replays to a bitwise-identical manifest.
+        self.wal = None
+        if durable:
+            from repro_torch.data.wal import ManifestWAL
+            self.wal = ManifestWAL(os.path.join(root, "wal"),
+                                   snapshot_every=wal_snapshot_every)
 
     # ------------------------------------------------------------------
     def _new_store(self) -> PartitionStore:
@@ -464,18 +607,21 @@ class DiskBackend(_RegistryMixin):
         layout = self._layouts[state_id]
         store = self._new_store()
         entry = {"done": False, "cancelled": False, "error": None}
-        device = self.data.device
+        # The writer reads the table as it is now: an append grows the
+        # table past this view without touching its rows (and cancels the
+        # write, whose output would be stale).
+        data = self.data
+        device = data.device
 
         def work() -> None:
             try:
                 if device.type == "cuda":
                     # The writer thread launches on the table's card.
                     with torch.cuda.device(device):
-                        secs = store.write(self.data, layout,
+                        secs = store.write(data, layout,
                                            compress=self.compress)
                 else:
-                    secs = store.write(self.data, layout,
-                                       compress=self.compress)
+                    secs = store.write(data, layout, compress=self.compress)
             except Exception as exc:
                 with self._lock:
                     entry["error"] = exc
@@ -519,10 +665,36 @@ class DiskBackend(_RegistryMixin):
                 raise RuntimeError(
                     f"DiskBackend: the background rewrite of state "
                     f"{state_id} failed") from entry["error"]
+        self._log_swap(store)
         old = self._serving_store
         self._serving_store, self._serving_layout = store, layout
         if old is not None:
             shutil.rmtree(old.root, ignore_errors=True)
+        self._absorb_deltas()
+
+    def _log_swap(self, store: PartitionStore) -> None:
+        """WAL-commit a layout swap *before* the pointer flips: the record
+        carries the new store's exact manifest, so replay reconstructs it
+        bitwise even if the crash lands mid-flip."""
+        if self.wal is None:
+            return
+        with open(os.path.join(store.root, "manifest.json")) as f:
+            manifest = json.load(f)
+        op = "init" if self._serving_store is None else "swap"
+        self.wal.append({"op": op,
+                         "store": os.path.basename(store.root),
+                         "manifest": manifest})
+
+    def _absorb_deltas(self) -> None:
+        """A full (re)write just routed every pending delta row into the
+        new clustered store: retire the delta files."""
+        d = self._delta
+        if d is None or not d.pending:
+            return
+        for batch in d.batches:
+            os.remove(os.path.join(self._delta_dir,
+                                   f"delta_{batch.batch_id:05d}.npz"))
+        d.absorb_up_to(len(self.data))
 
     @property
     def serving_state(self) -> Optional[int]:
@@ -547,11 +719,71 @@ class DiskBackend(_RegistryMixin):
         with self._lock:
             return not entry["done"]
 
+    # -- streaming ingest (see repro_torch.engine.ingest) ---------------
     def enable_ingest(self):
-        """Streaming ingest belongs to a later slice of the port."""
-        raise NotImplementedError(
-            "DiskBackend ingest is not ported yet (ROADMAP.md queue 1 "
-            "item 7)")
+        """Open the write path: appended rows land as on-disk delta files
+        (``deltas/delta_*.npz``) that scans read alongside the clustered
+        store until the next full (re)write absorbs them."""
+        if self._delta is None:
+            from .ingest import DeltaLog
+            self._delta = DeltaLog(len(self.data))
+            os.makedirs(self._delta_dir, exist_ok=True)
+        return self._delta
+
+    @property
+    def ingest_base_meta(self) -> Optional[L.PartitionMetadata]:
+        """Zone maps of the clustered base store (manifest-derived)."""
+        if self._serving_store is None:
+            return None
+        return self._serving_store.metadata()
+
+    def ingest_rows(self, rows):
+        """Append one batch as an unclustered on-disk delta partition.
+
+        Commit protocol (crash-safe under ``durable=True``): the delta
+        file is written first, then the WAL record — the record is the
+        commit point, so a crash between the two leaves an orphaned file
+        that replay simply never references.
+        """
+        d = self._delta
+        if d is None:
+            raise RuntimeError("enable_ingest() first")
+        rows, start = self._append_rows(rows)
+        batch = d.append(rows, start)
+        fname = f"delta_{batch.batch_id:05d}.npz"
+        self._save()(os.path.join(self._delta_dir, fname),
+                     rows=rows.cpu().numpy())
+        if self.wal is not None:
+            self.wal.append({"op": "append_delta",
+                             "batch_id": batch.batch_id,
+                             "file": fname,
+                             "mins": batch.mins.tolist(),
+                             "maxs": batch.maxs.tolist(),
+                             "rows": batch.rows})
+        # Prepared stores were written against the pre-append table: their
+        # output is stale.  Cancel them; activation rewrites from scratch.
+        for sid in list(self._pending):
+            thread, store, entry = self._pending.pop(sid)
+            with self._lock:
+                entry["cancelled"] = True
+                finished = entry["done"] or thread is None
+            if finished:
+                shutil.rmtree(store.root, ignore_errors=True)
+        for lay in self._layouts.values():
+            lay.true_meta = None
+        return batch
+
+    @staticmethod
+    def recover_state(root: str) -> dict:
+        """Replay the manifest WAL under ``root`` after a crash.
+
+        Returns the reduced manifest state (serving store + manifest,
+        pending delta batches, in-flight migration) — bitwise identical,
+        via :func:`repro_torch.data.wal.canonical_manifest`, to the state
+        an uninterrupted run would have logged.
+        """
+        from repro_torch.data.wal import ManifestWAL
+        return ManifestWAL(os.path.join(root, "wal")).replay()
 
     # -- incremental migration (see repro_torch.engine.reorg) -----------
     @property
@@ -574,6 +806,11 @@ class DiskBackend(_RegistryMixin):
         store = self._new_store()
         done = np.zeros(plan.num_target_partitions, dtype=bool)
         self._migration = (plan, store, done, None)
+        if self.wal is not None:
+            self.wal.append({"op": "migration_begin",
+                             "store": os.path.basename(store.root),
+                             "target_state": plan.target.layout_id,
+                             "num_targets": plan.num_target_partitions})
 
     def _write_target_partition(self, plan, store: PartitionStore,
                                 j: int) -> None:
@@ -595,6 +832,12 @@ class DiskBackend(_RegistryMixin):
         plan, store, done, _ = self._migration
         for j in newly_done:
             self._write_target_partition(plan, store, j)
+        if self.wal is not None:
+            # Logged after the files land: a crash before this record
+            # replays to the pre-batch done set, and the orphaned partition
+            # files are rewritten when the moves re-run.
+            self.wal.append({"op": "migration_apply",
+                             "done": [int(j) for j in newly_done]})
         done[list(newly_done)] = True
         self._migration = (plan, store, done, hybrid_meta)
 
@@ -621,9 +864,15 @@ class DiskBackend(_RegistryMixin):
                 # Only empty target partitions reach here (every non-empty
                 # non-identical partition was a planned move).
                 self._write_target_partition(plan, store, j)
-        write_manifest(store.root, plan.num_target_partitions,
-                       meta.mins.cpu().tolist(), meta.maxs.cpu().tolist(),
+        mins, maxs = meta.mins.cpu().tolist(), meta.maxs.cpu().tolist()
+        write_manifest(store.root, plan.num_target_partitions, mins, maxs,
                        meta.rows_host, plan.target.name)
+        if self.wal is not None:
+            self.wal.append({"op": "swap",
+                             "store": os.path.basename(store.root),
+                             "manifest": manifest_dict(
+                                 plan.num_target_partitions, mins, maxs,
+                                 meta.rows_host, plan.target.name)})
         old = self._serving_store
         self._serving_store, self._serving_layout = store, plan.target
         if old is not None:
@@ -656,11 +905,31 @@ class DiskBackend(_RegistryMixin):
                     rows_read += len(z["rows"])
         return rows_read / max(len(self.data), 1)
 
+    def _serve_deltas(self, query: wl.Query) -> int:
+        """Rows read from pending delta files the query cannot skip (the
+        skip test scans the batches' zone maps on the table's device)."""
+        d = self._delta
+        if d is None or not d.pending:
+            return 0
+        scanned = compute.scan_matrix(
+            query.lo[None], query.hi[None],
+            torch.stack([b.mins for b in d.batches]),
+            torch.stack([b.maxs for b in d.batches]))[0]
+        rows_read = 0
+        for batch, hit in zip(d.batches, scanned):
+            if hit:
+                path = os.path.join(self._delta_dir,
+                                    f"delta_{batch.batch_id:05d}.npz")
+                with np.load(path) as z:
+                    rows_read += len(z["rows"])
+        return rows_read
+
     def serve(self, query: wl.Query) -> float:
         if self._migration is not None and self._migration[3] is not None:
             return self._serve_hybrid(query)
         _, stats = self._serving_store.scan(query)
-        return stats.rows_read / max(len(self.data), 1)
+        return ((stats.rows_read + self._serve_deltas(query))
+                / max(len(self.data), 1))
 
     def close(self) -> None:
         """Join background writers and remove all materialized directories."""
@@ -678,3 +947,4 @@ class DiskBackend(_RegistryMixin):
         if self._serving_store is not None:
             shutil.rmtree(self._serving_store.root, ignore_errors=True)
             self._serving_store = self._serving_layout = None
+        shutil.rmtree(self._delta_dir, ignore_errors=True)

@@ -21,11 +21,13 @@ import time
 from typing import Deque, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import oreo as _oreo
 from repro_torch.core import workload as wl
 
 from .backends import StorageBackend
+from .ingest import DebtMeter, IngestConfig
 from .policies import Decision, Policy
 
 
@@ -50,9 +52,6 @@ class LayoutEngine:
     """Drives a :class:`Policy` against a :class:`StorageBackend`, query by
     query.  Single-use and stateful: feed it one logical stream (via
     :meth:`step` or :meth:`run`) and read the trace with :meth:`result`.
-
-    Streaming ingest belongs to a later slice of the port; asking for it
-    raises :class:`NotImplementedError`.
     """
 
     def __init__(self, policy: Policy, backend: StorageBackend,
@@ -62,11 +61,7 @@ class LayoutEngine:
                  rows_per_tick: Optional[int] = None,
                  reorg_window: int = 64,
                  reorg_compute: str = "move_score",
-                 ingest: Optional[object] = None):
-        if ingest is not None:
-            raise NotImplementedError(
-                "LayoutEngine(ingest) is not ported yet (ROADMAP.md "
-                "queue 1 item 7)")
+                 ingest: Optional[IngestConfig] = None):
         self.policy = policy
         self.backend = backend
         self.delta = delta
@@ -95,9 +90,6 @@ class LayoutEngine:
                 recent_window=reorg_window, compute=reorg_compute)
         elif rows_per_tick is not None:
             raise ValueError("rows_per_tick requires incremental=True")
-        #: The ingest debt meter comes with a later slice; the fleet reads
-        #: it to decide whether a pass may commit in bulk.
-        self._debt = None
         #: Optional reorg governor (see :mod:`repro_torch.engine.fleet`): an
         #: object with ``on_charge(engine, index, state_id) -> bool`` (may
         #: physical work start now?) and ``may_apply(engine, due_index,
@@ -107,6 +99,38 @@ class LayoutEngine:
         #: Δ-delay semantics.  A governor can only *defer* physical work,
         #: never advance it, so per-tenant Δ-delay bounds are preserved.
         self.governor = governor
+        #: Streaming ingest (see :mod:`repro_torch.engine.ingest`): rows
+        #: appended through :meth:`ingest` land as unclustered delta
+        #: partitions visible to scans immediately; a :class:`DebtMeter`
+        #: accrues the workload's excess scan cost over a hypothetical
+        #: compacted table and, once it crosses ``debt_threshold * α``, the
+        #: engine charges a reclustering reorganization through the exact
+        #: drift-reorg path (α at decision time, Δ-delayed swap, governor
+        #: arbitration, and — in incremental mode — budgeted micro-move
+        #: execution).  The fleet reads ``_debt`` to decide whether a pass
+        #: may commit in bulk.
+        self.ingest_config = ingest
+        self._debt: Optional[DebtMeter] = None
+        self._delta_generation = 0
+        #: Decision indices where a debt-triggered compaction was charged
+        #: (a subset of the trace's ``reorg_indices``).
+        self.compaction_indices: List[int] = []
+        self.ingested_rows = 0
+        if ingest is not None:
+            enable = getattr(backend, "enable_ingest", None)
+            if enable is None:
+                raise ValueError(
+                    f"ingest needs a backend with streaming-ingest support "
+                    f"({type(backend).__name__} has no enable_ingest)")
+            if self.incremental and getattr(backend, "delta_source",
+                                            None) is None:
+                raise ValueError(
+                    "incremental=True ingest needs a backend exposing the "
+                    "hybrid delta source for compaction planning "
+                    "(delta_source); use atomic mode with "
+                    f"{type(backend).__name__}")
+            enable()
+            self._debt = DebtMeter()
         self._started = False
         self._index = 0
         self._query_costs: List[float] = []
@@ -128,6 +152,103 @@ class LayoutEngine:
         self.backend.activate(initial_state)
         self._started = True
 
+    # -- streaming ingest (see repro_torch.engine.ingest) ---------------
+    def ingest(self, rows):
+        """Append one batch of rows as an unclustered delta partition.
+
+        ``rows`` is an (N, C) host array (or a tensor); it goes to the
+        table's device once, and is routed there for the debt meter.  The
+        rows are visible to scans from the very next query (the backend
+        composes their exact zone maps onto the serving state); the debt
+        meter starts tracking what their lack of clustering costs.  Does
+        not advance the query index — ingest events and queries are
+        independent positions in a mixed stream.  Returns the backend's
+        :class:`repro_torch.engine.ingest.DeltaBatch`.
+        """
+        if self.ingest_config is None:
+            raise RuntimeError(
+                "this engine was built without ingest support (pass "
+                "ingest=IngestConfig() to LayoutEngine)")
+        backend = self.backend
+        rows = torch.as_tensor(rows, dtype=torch.float64,
+                               device=backend.data.device)
+        self.start()
+        self._sync_debt()
+        migrating = bool(getattr(backend, "migrating", False))
+        base = backend.ingest_base_meta
+        serving = backend.serving_layout
+        batch = backend.ingest_rows(rows)
+        self.ingested_rows += len(rows)
+        if not migrating:
+            # Mid-migration appends stay out of the meter until the
+            # migration completes and _sync_debt rebuilds against the new
+            # base (the generation bump at completion triggers it).
+            self._debt.on_append(base, rows, self._route(serving, rows))
+        return batch
+
+    @staticmethod
+    def _route(serving, rows: torch.Tensor) -> torch.Tensor:
+        """``rows``' partitions under the serving layout, int64 on their
+        device (partition 0 for a route-less layout)."""
+        if serving is not None and serving.route is not None:
+            return serving.route(rows).to(torch.int64)
+        return torch.zeros(len(rows), dtype=torch.int64, device=rows.device)
+
+    def _sync_debt(self) -> None:
+        """Re-anchor the debt meter after any delta absorption.
+
+        Absorptions bump the :class:`DeltaLog` generation (atomic
+        activation, migration begin/complete); the meter then resets —
+        debt is considered paid by the rewrite — and rebuilds its
+        compacted zone maps from whichever batches are *still* pending
+        against the new base, each re-routed from its slice of the
+        device table.
+        """
+        d = getattr(self.backend, "delta_log", None)
+        if d is None or d.generation == self._delta_generation:
+            return
+        self._delta_generation = d.generation
+        self._debt.reset()
+        if getattr(self.backend, "migrating", False) or not d.pending:
+            return
+        base = self.backend.ingest_base_meta
+        serving = self.backend.serving_layout
+        for b in d.batches:
+            rows = self.backend.data[b.start:b.end]
+            self._debt.on_append(base, rows, self._route(serving, rows))
+
+    def _maybe_compact(self, i: int) -> None:
+        """Charge a debt-triggered reclustering through the drift-reorg
+        path.  Deferred while any swap or migration is in flight — the
+        debt keeps accruing and re-triggers at the next clean step."""
+        self._sync_debt()
+        if self._pending_swaps or getattr(self.backend, "migrating", False):
+            return
+        if not self._debt.triggered(self.alpha, self.ingest_config):
+            return
+        sid = self.backend.serving_state
+        if sid is None or not self.backend.has(sid):
+            return
+        self._debt.compactions_triggered += 1
+        self.compaction_indices.append(i)
+        self._charge_reorg(i, Decision(state=sid, reorg=True))
+
+    def ingest_stats(self) -> dict:
+        """Ingest-plane counters (kept out of :meth:`result`'s trace so
+        ingest-disabled traces stay bit-comparable)."""
+        d = getattr(self.backend, "delta_log", None)
+        meter = self._debt
+        return {
+            "ingested_rows": int(self.ingested_rows),
+            "pending_batches": 0 if d is None else d.num_batches,
+            "pending_rows": 0 if d is None else d.delta_rows,
+            "clustering_debt": 0.0 if meter is None else float(meter.debt),
+            "total_excess": (0.0 if meter is None
+                             else float(meter.total_excess)),
+            "compactions": list(self.compaction_indices),
+        }
+
+    # ------------------------------------------------------------------
     def _charge_reorg(self, i: int, decision: Decision) -> None:
         """Bookkeeping for a charged reorganization (shared by step/run).
 
@@ -230,6 +351,8 @@ class LayoutEngine:
         executor = self.reorg_executor
         if executor is not None:
             executor.observe(query)
+        if self._debt is not None:
+            self._maybe_compact(i)
         t0 = time.perf_counter()
         decision = self.policy.decide(i, query, self.backend)
         t1 = time.perf_counter()
@@ -238,6 +361,9 @@ class LayoutEngine:
         t2 = time.perf_counter()        # step's migration row budget
         query_cost = float(self.backend.serve(query))
         t3 = time.perf_counter()
+        if self._debt is not None:
+            self._sync_debt()
+            self._debt.observe(query_cost, query.lo, query.hi)
         self._query_costs.append(query_cost)
         self._state_seq.append(decision.state)
         self._index += 1
@@ -307,6 +433,15 @@ class LayoutEngine:
         """
         queries = list(stream)
         has_block = callable(getattr(self.backend, "serve_block", None))
+        if self.ingest_config is not None:
+            # Debt metering consumes every realized serve cost in step
+            # order, and a debt-triggered compaction can swap the layout
+            # at any step — both break the swap-aligned block flushing.
+            if batch_serve:
+                raise ValueError(
+                    "batch_serve=True is incompatible with ingest (debt "
+                    "metering is per-step)")
+            batch_serve = False
         if self.incremental:
             # Hybrid serving can change the layout at *any* step a
             # micro-batch lands, not only at pending-swap applies, so the

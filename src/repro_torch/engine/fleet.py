@@ -3,7 +3,8 @@
 A :class:`FleetEngine` drives N independent tenants — each a fully-formed
 :class:`repro_torch.engine.LayoutEngine` with its own policy, backend, α
 and Δ-delay — over a single interleaved stream of typed
-:class:`~repro_torch.core.workload.QueryEvent` envelopes, the shape of
+:class:`~repro_torch.core.workload.QueryEvent` and
+:class:`~repro_torch.core.workload.IngestEvent` envelopes, the shape of
 traffic a warehouse actually sees.  :meth:`FleetEngine.submit` enqueues one
 event and :meth:`FleetEngine.drain` processes the backlog; ``run`` /
 ``run_batched`` are drivers over that one entry point.  Decisions stay
@@ -29,8 +30,9 @@ The contract with each tenant's Δ-delay semantics (paper §VI-D5):
 
 The host logic is the reference package's, line for line; the batched
 path scores every pass on the packed :class:`FleetMatrix` plane on the
-device.  Streaming ingest is a later slice of the port and raises
-:class:`NotImplementedError`.
+device.  An ingest event appends rows to its tenant's table (see
+:meth:`LayoutEngine.ingest`): it ticks the fleet clock and the scheduler,
+not the tenant's query index.
 """
 from __future__ import annotations
 
@@ -47,9 +49,6 @@ from repro_torch.kernels._backend import resolve_device
 from .core import LayoutEngine, StepResult
 from .fleet_matrix import FleetMatrix
 from .scheduler import ReorgScheduler, SchedulerSpec, UnlimitedScheduler
-
-_INGEST = ("ingest events are not ported yet (ROADMAP.md queue 1 "
-           "item 7)")
 
 
 @dataclasses.dataclass
@@ -512,33 +511,43 @@ class FleetEngine:
 
     def _dispatch(self, event: wl.Event) -> FleetStepResult:
         """Advance the fleet by one typed event (the per-event hot path)."""
-        if isinstance(event, wl.IngestEvent):
-            raise NotImplementedError(_INGEST)
         tenant_id = event.tenant_id
         engine = self._tenants[tenant_id]
         self._tick += 1
         self.scheduler.tick(self._tick)
         self._pump()
+        if isinstance(event, wl.IngestEvent):
+            # Rows appended to the tenant's table — visible to its very
+            # next query, ticking the fleet clock and the scheduler but
+            # not the tenant's own index.
+            engine.ingest(event.batch.rows)
+            return FleetStepResult(tick=self._tick, tenant_id=tenant_id,
+                                   step=None, swap_deferred=False)
         before = self.deferred_ticks
         step = engine.step(event.query)
         return FleetStepResult(tick=self._tick, tenant_id=tenant_id,
                                step=step,
                                swap_deferred=self.deferred_ticks > before)
 
-    def step(self, tenant_id: str, query: wl.Query) -> FleetStepResult:
-        """Advance the fleet by one of a tenant's queries, dispatched
-        immediately, ahead of any submitted backlog."""
-        if not isinstance(query, wl.Query):
-            raise NotImplementedError(_INGEST)
-        return self._dispatch(wl.QueryEvent(tenant_id, query))
+    def step(self, tenant_id: str, event) -> FleetStepResult:
+        """Advance the fleet by one interleaved event (payload form).
+
+        ``event`` is a :class:`repro_torch.core.workload.Query` (one tenant
+        step) or a :class:`repro_torch.core.workload.IngestBatch`; the pair
+        is wrapped into the typed event envelope and dispatched
+        immediately, ahead of any submitted backlog.
+        """
+        if isinstance(event, wl.IngestBatch):
+            return self._dispatch(wl.IngestEvent(tenant_id, event))
+        return self._dispatch(wl.QueryEvent(tenant_id, event))
 
     def run(self, events: Iterable[wl.Event],
             name: Optional[str] = None) -> FleetResult:
         """Submit every event, drain, and return the trace.
 
-        Accepts any iterable of :class:`~repro_torch.core.workload.
-        QueryEvent`, including a :class:`repro_torch.core.workload.
-        FleetStream`.
+        Accepts any iterable of typed events, including a
+        :class:`repro_torch.core.workload.FleetStream` or a mixed
+        query/ingest :class:`repro_torch.core.workload.IngestStream`.
         """
         for event in events:
             self.submit(event)
@@ -598,9 +607,13 @@ class FleetEngine:
         ``"fleet_scan"`` launches the fleet-scan kernel once per frame.
         Both compare in float64, so both are exact.
 
+        Ingest events are handled inline, through the same per-event
+        machinery as :meth:`run`, and end a pass's frames.
+
         When every tenant's policy implements the
-        :class:`repro_torch.engine.policies.BatchablePolicy` contract,
-        passes in which no event charges a reorganization and no swap is
+        :class:`repro_torch.engine.policies.BatchablePolicy` contract (and
+        no incremental executor or ingest debt is attached), passes in
+        which no event charges a reorganization and no swap is
         pending resolve through a *bulk* path: the decision rule runs once
         per tenant over the stacked primed cost matrix and the per-event
         bookkeeping (cost trace, state trace, index, fleet clock) is
@@ -619,8 +632,6 @@ class FleetEngine:
 
     def _drain_batched(self, events: List[wl.Event], compute: str,
                        frames_per_pass: Optional[int]) -> None:
-        if any(isinstance(ev, wl.IngestEvent) for ev in events):
-            raise NotImplementedError(_INGEST)
         fm = self._ensure_fleet_matrix(compute)
         scheduler = self.scheduler
         # Per-tenant hot-loop facts hoisted out of the inner loop; the
@@ -658,15 +669,31 @@ class FleetEngine:
         dense_hint = True
         i, n = 0, len(events)
         while i < n:
+            if isinstance(events[i], wl.IngestEvent):
+                # Ingest event: handled inline through the same per-event
+                # machinery as :meth:`_dispatch` (tick, scheduler, pump,
+                # append) — never scored by the fused pass, so a stream
+                # without ingest events takes exactly the path without.
+                tid, batch = events[i]
+                self._tick += 1
+                scheduler.tick(self._tick)
+                if self._waiting:
+                    self._pump()
+                prep[tid][0].ingest(batch.rows)
+                i += 1
+                continue
             frames: List[List[wl.QueryEvent]] = []
             while len(frames) < frames_per_pass and i < n:
                 j = i
                 seen = set()
-                while j < n and events[j][0] not in seen:
+                while (j < n and isinstance(events[j], wl.QueryEvent)
+                       and events[j][0] not in seen):
                     seen.add(events[j][0])
                     j += 1
                 frames.append(events[i:j])
                 i = j
+                if j < n and isinstance(events[j], wl.IngestEvent):
+                    break
             # A regular pass headed for the bulk path never reads the
             # per-event prime tuples — score dense-only and, in the rare
             # case the bulk commit is refused (pending swap, stale plane,

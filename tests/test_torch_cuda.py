@@ -1215,3 +1215,206 @@ def test_zorder_methods_on_the_card_equal_the_cpu(cuda_device):
         assert np.array_equal(x.query_costs, y.query_costs), name
         assert x.reorg_indices == y.reorg_indices
         assert np.array_equal(x.state_seq, y.state_seq)
+
+
+# ---------------------------------------------------------------------------
+# The streaming ingest plane
+# ---------------------------------------------------------------------------
+
+def test_ingest_delta_log_on_the_card_equals_the_cpu(cuda_device):
+    """DeltaLog.compose and source_assignment on the card give the CPU's
+    zone maps, row counts and assignment bitwise; with no batches compose
+    returns the base itself."""
+    from repro_torch.engine.ingest import DeltaLog
+    rng = np.random.default_rng(40)
+    data = rng.uniform(0, 100, size=(3_000, 6))
+    batches = [rng.uniform(0, 100, size=(n, 6)) for n in (40, 1, 300, 77)]
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        table = torch.as_tensor(data, device=dev)
+        layout = core.build_default_layout(0, table, 16, sort_col=0)
+        base = layout.materialize(table)
+        log = DeltaLog(len(data))
+        assert log.compose(base) is base
+        start = len(data)
+        for rows in batches:
+            log.append(torch.as_tensor(rows, device=dev), start)
+            start += len(rows)
+        composed = log.compose(base)
+        assign = log.source_assignment(layout.route(table).to(torch.int64),
+                                       base.num_partitions, start)
+        assert composed.device.type == dev.type and assign.device.type \
+            == dev.type
+        out.append((composed.mins.cpu(), composed.maxs.cpu(),
+                    composed.rows_host, assign.cpu()))
+    cpu, card = out
+    assert torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
+    assert np.array_equal(card[2], cpu[2]) and torch.equal(card[3], cpu[3])
+    assert torch.equal(cpu[0][16:], torch.as_tensor(np.stack(
+        [b.min(0) for b in batches])))
+
+
+def delta_plane(rng, b, t, s, p, c):
+    """A fleet pass over delta-bearing planes: the first 16 partitions of
+    every state clustered, the rest delta partitions whose bounds span
+    nearly the whole domain (one append each), the padded last state's
+    tail empty."""
+    lo, hi, mins, maxs, rows, inv, *_ = plane_operands(rng, b, t, s, p, c)
+    if p > 16:
+        wide = rng.uniform(0, 3, (t, s, p - 16, c))
+        mins[:, :, 16:] = wide
+        maxs[:, :, 16:] = 100 - wide
+    return lo, hi, mins, maxs, rows, inv
+
+
+@pytest.mark.parametrize("t,s,p", [
+    (16, 8, 17),          # one pending delta partition
+    (16, 8, 80),          # 64 deltas
+    (16, 8, 141),         # mixed_rw's 125 deltas: S * P past one tile
+    (32, 12, 256),        # the fleet plane's P_cap after 125 appends
+])
+def test_ingest_widened_planes_match_plain(cuda_device, t, s, p):
+    """pruning, fleet_scan and decision_fused at plane shapes that only
+    delta partitions produce equal their plain versions bitwise."""
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.decision_fused import ref as dref
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.fleet_scan import ref as fref
+    rng = np.random.default_rng(t + s + p)
+    lo, hi, mins, maxs, rows, inv = delta_plane(rng, 16, t, s, p, 8)
+    dev = [torch.as_tensor(a, device=cuda_device)
+           for a in (lo, hi, mins, maxs, rows, inv)]
+    host = [torch.as_tensor(a) for a in (lo, hi, mins, maxs, rows, inv)]
+    for path in (0, 1, 2):
+        scan, cost, _ = decision_fused.fused_decision(*dev, path=path)
+        w_scan, w_cost, _ = dref.fused_decision(*host)
+        assert torch.equal(scan.cpu(), w_scan)
+        assert torch.allclose(cost.cpu(), w_cost, rtol=1e-12, atol=0)
+        for k in (0, 15):
+            got = fleet_scan.scan_fleet(dev[0][k], dev[1][k],
+                                        dev[2].flatten(1, 2),
+                                        dev[3].flatten(1, 2), path=path)
+            want = fref.scan_fleet(host[0][k], host[1][k],
+                                   host[2].flatten(1, 2),
+                                   host[3].flatten(1, 2))
+            assert torch.equal(got.cpu(), want)
+    # one tenant's StateMatrix plane: a block of run's estimates, a step's
+    # estimate and a serve over the shadow alone
+    flat_min, flat_max = dev[2][0].flatten(0, 1), dev[3][0].flatten(0, 1)
+    q_lo, q_hi, _, _ = operands(rng, 256, 1, 8)
+    ops = [torch.as_tensor(a, device=cuda_device) for a in (q_lo, q_hi)]
+    for path in (0, 1, 2):
+        for q, pm, px in ((256, flat_min, flat_max), (1, flat_min, flat_max),
+                          (1, dev[2][0, 0], dev[3][0, 0])):
+            got = pruning.scan_matrix(ops[0][:q], ops[1][:q], pm, px,
+                                      path=path)
+            want = ref.scan_matrix(ops[0][:q].cpu(), ops[1][:q].cpu(),
+                                   pm.cpu(), px.cpu())
+            assert torch.equal(got.cpu(), want)
+
+
+def test_ingest_mixed_rw_fleet_on_the_card_equals_the_cpu(cuda_device):
+    """A short mixed_rw fleet (appends, a drift shift, debt-triggered
+    compactions): ``run`` and ``run_batched`` on both lanes on the card
+    give the CPU run's traces, compaction indices and ingest counters
+    bitwise, and the appended rows live on the card."""
+    from repro_torch.kernels.decision_fused import decision_fused
+    rng = np.random.default_rng(41)
+    tables = {f"t{t}": rng.uniform(0, 100, size=(4_000, 6)) for t in
+              range(2)}
+    lo = np.min([d.min(0) for d in tables.values()], axis=0)
+    hi = np.max([d.max(0) for d in tables.values()], axis=0)
+    stream = core.make_ingest_scenario("mixed_rw", lo, hi, num_tenants=2,
+                                       queries_per_tenant=160, seed=7,
+                                       batch_rows=60)
+
+    def fleet(dev):
+        engines = {}
+        for tid, table in tables.items():
+            data = torch.as_tensor(table, device=dev)
+            cfg = core.OreoConfig(alpha=2.0, seed=0, delta=5, manager=core.
+                                  LayoutManagerConfig(target_partitions=8,
+                                                      window_size=60,
+                                                      gen_every=30))
+            engines[tid] = engine.LayoutEngine(engine.OreoPolicy(
+                data, core.build_default_layout(0, data, 8, sort_col=0),
+                core.make_generator("qdtree"), cfg),
+                engine.InMemoryBackend(data), delta=cfg.delta,
+                ingest=engine.IngestConfig())
+        return engine.FleetEngine(engines, engine.UnlimitedScheduler())
+
+    def trace(f, res):
+        return {tid: (res.per_tenant[tid].query_costs.tobytes(),
+                      res.per_tenant[tid].reorg_indices,
+                      res.per_tenant[tid].state_seq.tobytes(),
+                      f.tenant(tid).compaction_indices,
+                      f.tenant(tid).ingest_stats())
+                for tid in f.tenant_ids}
+    cpu_fleet = fleet(torch.device("cpu"))
+    want = trace(cpu_fleet, cpu_fleet.run(stream))
+    assert any(w[3] for w in want.values())          # it compacted
+    for mode in ("run", "fleet_scan", "decision_fused"):
+        before = (pruning.scan_matrix.launches,
+                  decision_fused.fused_decision.launches)
+        f = fleet(cuda_device)
+        res = f.run(stream) if mode == "run" else f.run_batched(
+            stream, compute=mode)
+        assert trace(f, res) == want, mode
+        assert pruning.scan_matrix.launches > before[0]
+        if mode == "decision_fused":
+            assert decision_fused.fused_decision.launches > before[1]
+        for tid in f.tenant_ids:
+            data = f.tenant(tid).backend.data
+            assert data.is_cuda and len(data) == 4_000 + sum(
+                b.num_rows for b in stream.tenant_batches(tid))
+
+
+@pytest.mark.parametrize("scenario", ["sudden_shift", "gradual_drift",
+                                      "cyclic_diurnal", "flash_crowd",
+                                      "template_churn"])
+def test_ingest_enabled_but_unused_changes_no_trace_or_launch(cuda_device,
+                                                              scenario):
+    """``ingest=IngestConfig()`` with no appends: under every scheduler,
+    ``run`` and ``run_batched`` on both lanes give the traces, deferrals
+    and per-kernel launch counts of the same fleet without ingest."""
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    counters = (pruning.scan_matrix, fleet_scan.scan_fleet,
+                decision_fused.fused_decision)
+    rng = np.random.default_rng(42)
+    tables = {f"t{t}": torch.as_tensor(rng.uniform(0, 100, size=(2_000, 5)),
+                                       device=cuda_device) for t in range(2)}
+    lo = np.min([d.amin(0).cpu().numpy() for d in tables.values()], axis=0)
+    hi = np.max([d.amax(0).cpu().numpy() for d in tables.values()], axis=0)
+    stream = core.make_drift_scenario(scenario, lo, hi, num_tenants=2,
+                                      queries_per_tenant=80, seed=7)
+    schedulers = {"unlimited": engine.UnlimitedScheduler,
+                  "k1": lambda: engine.KConcurrentScheduler(1),
+                  "bucket": lambda: engine.TokenBucketScheduler(
+                      rate=0.01, capacity=1.0, initial=0.0)}
+
+    def run(sched, mode, ingest):
+        engines = {}
+        for tid, data in tables.items():
+            cfg = core.OreoConfig(alpha=10.0, seed=2, delta=5, manager=core.
+                                  LayoutManagerConfig(target_partitions=8,
+                                                      window_size=60,
+                                                      gen_every=30))
+            engines[tid] = engine.LayoutEngine(engine.OreoPolicy(
+                data, core.build_default_layout(0, data, 8),
+                core.make_generator("qdtree"), cfg),
+                engine.InMemoryBackend(data), delta=cfg.delta,
+                ingest=engine.IngestConfig() if ingest else None)
+        f = engine.FleetEngine(engines, schedulers[sched]())
+        before = [c.launches for c in counters]
+        res = f.run(stream) if mode == "run" else f.run_batched(
+            stream, compute=mode)
+        return ({tid: (r.query_costs.tobytes(), r.reorg_indices,
+                       r.state_seq.tobytes())
+                 for tid, r in res.per_tenant.items()},
+                res.swaps_deferred, res.deferred_ticks,
+                [c.launches - b for c, b in zip(counters, before)])
+    for sched in schedulers:
+        for mode in ("run", "fleet_scan", "decision_fused"):
+            assert run(sched, mode, True) == run(sched, mode, False), \
+                (sched, mode)

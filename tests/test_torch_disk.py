@@ -208,13 +208,15 @@ def test_disk_backend_hybrid_serving_and_completion_files(disk_bench,
 
 def test_disk_backend_refusals_and_failed_writes(tmp_path):
     data = torch.as_tensor(np.random.default_rng(0).uniform(0, 1, (200, 3)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        te.DiskBackend(data, str(tmp_path / "d"), durable=True)
+    durable = te.DiskBackend(data, str(tmp_path / "d"), durable=True)
+    assert durable.wal is not None and durable.delta_log is None
+    durable.close()
     with pytest.raises(TypeError, match="float64"):
         te.DiskBackend(data.float(), str(tmp_path / "f"))
     backend = te.DiskBackend(data, str(tmp_path / "b"), background=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        backend.enable_ingest()
+    assert backend.wal is None
+    with pytest.raises(RuntimeError, match="enable_ingest"):
+        backend.ingest_rows(np.zeros((2, 3)))
     good = tc.build_default_layout(0, data, 4)
     backend.register(good)
     backend.activate(0)

@@ -240,18 +240,30 @@ def test_backend_serving_memo_priming_and_blocks(bench):
 
 
 @pytest.mark.parametrize("kw", [{"governor": object(), "incremental": True},
-                                {"rows_per_tick": 10}, {"ingest": object()}])
+                                {"rows_per_tick": 10},
+                                {"ingest": te.IngestConfig()}])
 def test_later_slices_raise_not_implemented(bench, kw):
-    """Ingest is still a later slice and raises; the incremental plane is
-    ported, so its cases check the reference's own refusals instead: an
-    incremental engine (governed or not) refuses block serving, and a row
-    budget needs incremental mode."""
+    """The incremental plane and streaming ingest are ported, so every
+    case checks the reference's own refusals: an incremental or ingesting
+    engine refuses block serving (and an ingesting one still runs the
+    stepwise loop, to ``repro``'s trace), and a row budget needs
+    incremental mode."""
     data, stream = bench
     tdata = t(data)
     policy = make_policy(tc, te, tdata, stream, "Static")
     if "ingest" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            te.LayoutEngine(policy, te.InMemoryBackend(tdata), **kw)
+        engine = te.LayoutEngine(policy, te.InMemoryBackend(tdata), **kw)
+        with pytest.raises(ValueError, match="batch_serve"):
+            engine.run(stream.queries[:5], batch_serve=True)
+        got = engine.run(stream.queries[:40])
+        ref = re_.LayoutEngine(make_policy(rc, re_, data, stream, "Static"),
+                               re_.InMemoryBackend(data),
+                               ingest=re_.IngestConfig()).run(
+            stream.queries[:40])
+        assert np.array_equal(got.query_costs, ref.query_costs)
+        assert engine.ingest_stats() == {
+            "ingested_rows": 0, "pending_batches": 0, "pending_rows": 0,
+            "clustering_debt": 0.0, "total_excess": 0.0, "compactions": []}
     elif "rows_per_tick" in kw:
         with pytest.raises(ValueError, match="requires incremental"):
             te.LayoutEngine(policy, te.InMemoryBackend(tdata), **kw)

@@ -336,8 +336,10 @@ def test_remove_tenant_releases_scheduler_grants(tenant_data):
 
 
 def test_later_slices_raise_not_implemented(tenant_data):
-    """Ingest events are still a later slice and raise; incremental fleets
-    are ported, so their case checks the mixed-mode refusals instead."""
+    """Incremental fleets and ingest events are ported, so the cases check
+    the reference's own refusals: mixed incremental modes, and an ingest
+    event for a tenant built without ingest (the engine refuses it after
+    the fleet clock ticked, as in ``repro``)."""
     d = tenant_data["t0"]
     assert te.FleetEngine({}, incremental=True).incremental
     with pytest.raises(ValueError, match="mix"):
@@ -353,14 +355,19 @@ def test_later_slices_raise_not_implemented(tenant_data):
     with pytest.raises(ValueError, match="at least one tenant"):
         te.FleetEngine({})
     assert te.FleetEngine({}, incremental=False).tenant_ids == []
-    ingest = te.IngestEvent("a", object())
+    batch = tc.IngestBatch(rows=d[:3].copy())
+    ingest = te.IngestEvent("a", batch)
     for drive in ("run", "run_batched"):
         f = te.FleetEngine({"a": flipflop_engine("port", d)})
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        with pytest.raises(RuntimeError, match="without ingest"):
             getattr(f, drive)([ingest])
-        assert f.result().ticks == 0
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        f.step("a", object())
+        ref = re_.FleetEngine({"a": flipflop_engine("ref", d)})
+        with pytest.raises(RuntimeError, match="without ingest"):
+            getattr(ref, drive)([re_.IngestEvent("a", rc.IngestBatch(
+                rows=d[:3].copy()))])
+        assert f.result().ticks == ref.result().ticks == 1
+    with pytest.raises(RuntimeError, match="without ingest"):
+        f.step("a", batch)
     with pytest.raises(ValueError, match="compute backend"):
         f.run_batched([], compute="pallas_fused")
 
