@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases kernel,serve_parity,serve_full
     python3 chip_smoke.py --phases kernel,zorder_parity,zorder_full
     python3 chip_smoke.py --phases kernel,ingest_parity,ingest_full
+    python3 chip_smoke.py --phases router_parity,router_full
 
 Phases, each printing JSON lines:
 
@@ -135,6 +136,32 @@ Phases, each printing JSON lines:
    pruning's launches by caller; the never arm's final planes hold
    pruning, fleet_scan and decision_fused against their plain versions;
    debt/incremental must equal debt bitwise.
+15. ``router_parity``: the routing plane and the serving front end, card
+   against the files and the CPU: (a) ``compute="reference"`` backends at
+   ``parity``'s 20,000 x 8 config, OREO's and Static's traces equal to the
+   default mode's, with the reference path's pruning launches; (b)
+   ``BENCH_router.json``'s deterministic fields (events per shard at 1, 2,
+   4 and 8 shards, the 1-shard router equal to a plain fleet, the
+   migration section), the migration router card against CPU; (c)
+   ``BENCH_serving.json``'s (each scenario's events, cache counters and
+   breaker opens from the closed serving loop, whose traces equal the
+   direct run's; the overload section), the overload front end card
+   against CPU; (d) incremental tenants migrated between 2 shards on the
+   ``fleet_scan`` lane, traces and ledgers equal to the unsharded fleet's,
+   card against CPU.
+16. ``router_full``: the ``fleet16-sf1-oreo-router`` cell --
+   ``fleet16-sf1-oreo-k1``'s width and traffic (16 OREO tenants of
+   6,001,215 x 8), queries per tenant cut to ``ROUTER_QUERIES``, behind 4
+   shards on the one card: (A) an unlimited router with four tenants
+   migrated at half the stream, traces equal to the unsharded fleet's;
+   (B) ``ServeFrontend(batched=True)`` with ``bench_serving``'s overload
+   settings over a K = 1 router, charge ledgers equal to the router's
+   without it, with breaker, shed counts and p50/p99 ms per event; (C) a
+   ``ProcessShardSet`` of 4 workers on the card, run from a child process
+   that must never initialize CUDA, with one cross-process migration and
+   a tail of traffic, traces equal to the inline router's; each arm's
+   events/s, critical path (events over the slowest shard's drains) and
+   launches (arm C's summed over its workers).
 
 Kernel launch counts are reset just before each main path and read just
 after it; every 50th (fleet) or 100th (single table, per-query scan or
@@ -178,7 +205,8 @@ SF1_ROWS = 6_001_215          # TPC-H lineitem cardinality at SF 1
 FLEET_SEED = 100              # benchmarks/bench_fleet.py: tenant tables
 PHASES = ("kernel", "parity", "fleet_parity", "full", "fleet_full",
           "reorg_parity", "reorg_full", "serve_parity", "serve_full",
-          "zorder_parity", "zorder_full", "ingest_parity", "ingest_full")
+          "zorder_parity", "zorder_full", "ingest_parity", "ingest_full",
+          "router_parity", "router_full")
 
 
 def emit(phase: str, **fields) -> None:
@@ -3602,6 +3630,746 @@ def zorder_full_route(device, data, route) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The routing plane and the serving front end: compute="reference", the
+# router and the front end against BENCH_router.json / BENCH_serving.json,
+# and the router cell at fleet16's width (inline, front end, processes)
+# ---------------------------------------------------------------------------
+
+ROUTER_CELL = "fleet16-sf1-oreo-router"
+ROUTER_QUERIES = 750          # fleet16's 1,500 queries per tenant, cut
+ROUTER_EXTRA = 100            # queries per tenant after the migration
+ROUTER_SHARDS = 4
+#: benchmarks/bench_serving.py's OVERLOAD front end (queue 48, block).
+SERVING_OVERLOAD = dict(queue_capacity=48, overflow_policy="block",
+                        breaker_open_frac=0.5, breaker_close_frac=0.1,
+                        breaker_min_open_events=16, pump_chunk=4)
+
+
+def tenant_traces(res) -> dict:
+    """Each tenant's trace, by tenant (a routed result lists its tenants
+    shard by shard)."""
+    return {tid: run_trace(r) for tid, r in res.per_tenant.items()}
+
+
+def sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bench_tenant(seed: int, rows: int, columns: int, alpha: float,
+                 delta: int, partitions: int, device, ingest: bool = False):
+    """One OREO tenant of benchmarks/bench_router.py and bench_serving.py
+    (tenant_engine: a table drawn from default_rng(100 + seed), window 80,
+    gen_every 40, seed 0, the default layout sorted on column 0)."""
+    import numpy as np
+    import torch
+    from repro_torch import core, engine
+    data = torch.as_tensor(np.random.default_rng(FLEET_SEED + seed).uniform(
+        0, 100, size=(rows, columns)), device=device)
+    cfg = core.OreoConfig(alpha=alpha, seed=0, delta=delta,
+                          manager=core.LayoutManagerConfig(
+                              target_partitions=partitions, window_size=80,
+                              gen_every=40))
+    policy = engine.OreoPolicy(
+        data, core.build_default_layout(0, data, partitions, sort_col=0),
+        core.make_generator("qdtree"), cfg)
+    return engine.LayoutEngine(
+        policy, engine.InMemoryBackend(data), delta=cfg.delta,
+        ingest=engine.IngestConfig() if ingest else None)
+
+
+def fleet16_tenant(seed: int, rows: int, device="cuda"):
+    """One tenant of the fleet16 cells (cell_fleet16's): a table drawn from
+    default_rng(100 + seed) on ``device``.  Module level, so spawned shard
+    workers can unpickle it."""
+    import numpy as np
+    import torch
+    data = torch.as_tensor(np.random.default_rng(FLEET_SEED + seed).uniform(
+        0, 100, size=(rows, 8)), device=device)
+    return oreo_tenant(data, 20.0, 10, 16, 0, 80, 40)
+
+
+def router_reference_mode(device, counted) -> None:
+    """(a) compute="reference" on the card at parity's 20,000 x 8 config:
+    OREO's and Static's traces equal the default mode's."""
+    import numpy as np
+    import torch
+    from repro_torch import core, engine
+    rng = np.random.default_rng(0)
+    table = rng.uniform(0, 100, size=(20_000, 8))
+    templates = core.make_templates(4, 8, rng)
+    stream = core.generate_workload(templates, table.min(0), table.max(0),
+                                    total_queries=1500, seed=1,
+                                    segment_length=(300, 500))
+    data = torch.as_tensor(table, device=device)
+    makers = policies(data, stream, 40.0, 16)
+    for name in ("OREO", "Static"):
+        traces, fields = {}, {}
+        for compute in ("state_matrix", "reference"):
+            t0 = time.perf_counter()
+            res, launched = counted(lambda: engine.LayoutEngine(
+                makers[name](), engine.InMemoryBackend(
+                    data, compute=compute)).run(stream))
+            traces[compute] = run_trace(res)
+            fields[compute] = {"seconds": time.perf_counter() - t0,
+                               "pruning_launches": launched["pruning"],
+                               "total_cost": res.total_cost,
+                               "moves": res.num_reorgs}
+        if traces["reference"] != traces["state_matrix"]:
+            raise AssertionError(f"router_parity: {name}'s reference-mode "
+                                 f"trace differs from the default mode's")
+        if device.type == "cuda" and not fields["reference"][
+                "pruning_launches"]:
+            raise AssertionError("router_parity: the reference path never "
+                                 "launched the pruning kernel")
+        emit("router_parity", case="compute='reference' 20,000 x 8",
+             policy=name, bitwise_equal_to_default=True, **fields)
+
+
+def bench_router_fields(device, counted, cpu=None) -> dict:
+    """(b) BENCH_router.json's deterministic fields: events per shard at
+    1, 2, 4 and 8 shards (each shard's drain timed alone, as the benchmark
+    does), the 1-shard router equal to a plain fleet, and the migration
+    section (4 shards, every 4th tenant moved at half the stream, traces
+    equal to the unsharded fleet's).  With ``cpu``, the migration router's
+    trace is also held card against CPU."""
+    import numpy as np
+    from repro_torch import core, engine
+    bench = json.loads((ROOT / "BENCH_router.json").read_text())
+    cfg = bench["config"]
+    args = (cfg["rows"], cfg["columns"], cfg["alpha"], cfg["delta"],
+            cfg["partitions"])
+    stream = core.make_drift_scenario(
+        cfg["scenario"], np.zeros(cfg["columns"]),
+        np.full(cfg["columns"], 100.0), num_tenants=cfg["tenants"],
+        queries_per_tenant=cfg["queries_per_tenant"], seed=7)
+    events = list(stream)
+
+    def tenants(dev):
+        return {f"t{t}": bench_tenant(t, *args, device=dev)
+                for t in range(cfg["tenants"])}
+
+    bad, rows = [], []
+    unsharded, launched = counted(lambda: engine.FleetEngine(
+        tenants(device)).run(stream))
+    for want in bench["results"]:
+        n = want["num_shards"]
+        router = engine.FleetRouter(tenants(device), num_shards=n)
+        for ev in events:
+            router.submit(ev)
+        depths = {sid: router.shard(sid).queue_depth
+                  for sid in router.shard_ids}
+        walls = {}
+        for sid in router.shard_ids:
+            t0 = time.perf_counter()
+            counted(router.shard(sid).drain)
+            sync(device)
+            walls[sid] = time.perf_counter() - t0
+        res = router.result()
+        if depths != want["events_per_shard"] or res.ticks != len(events):
+            bad.append(("events_per_shard", n, depths,
+                        want["events_per_shard"]))
+        if n == 1 and fleet_trace(res) != fleet_trace(unsharded):
+            bad.append(("one-shard router differs from the plain fleet",))
+        rows.append({"num_shards": n, "events_per_shard": depths,
+                     "critical_path_events_per_second":
+                         len(events) / max(walls.values()),
+                     "serial_events_per_second":
+                         len(events) / sum(walls.values())})
+
+    def migrated(dev):
+        router = engine.FleetRouter(tenants(dev), num_shards=4)
+        half = len(events) // 2
+        for ev in events[:half]:
+            router.submit(ev)
+        router.drain()
+        moved = 0
+        for tid in list(router.tenant_ids)[::4]:
+            src = router.shard_of(tid)
+            dst = next(s for s in router.shard_ids if s != src)
+            moved += router.migrate_tenant(tid, dst)
+        for ev in events[half:]:
+            router.submit(ev)
+        router.drain()
+        return router, moved
+
+    (router, moved), _ = counted(lambda: migrated(device))
+    res = router.result()
+    migration = {"num_shards": 4, "tenants_migrated": moved,
+                 "directory_overrides": len(router.directory.overrides),
+                 "traces_bit_identical":
+                     tenant_traces(res) == tenant_traces(unsharded)}
+    if migration != bench["migration"]:
+        bad.append(("migration", migration, bench["migration"]))
+    card_equals_cpu = None
+    if cpu is not None:
+        (cpu_router, _), _ = counted(lambda: migrated(cpu), dev=cpu)
+        card_equals_cpu = (fleet_trace(cpu_router.result())
+                           == fleet_trace(res))
+        if not card_equals_cpu:
+            bad.append(("the migration router's card trace differs from "
+                        "the CPU's",))
+    emit("router_parity", case="BENCH_router.json", tenants=cfg["tenants"],
+         shard_sweep=rows, migration=migration,
+         card_equals_cpu=card_equals_cpu, equal_to_file=not bad)
+    if bad:
+        raise AssertionError(f"router_parity: differs from "
+                             f"BENCH_router.json: {bad}")
+    return migration
+
+
+def bench_serving_fields(device, counted, cpu=None,
+                         overload_queries: int = 400) -> dict:
+    """(c) BENCH_serving.json's deterministic fields: for flash_crowd and
+    ingest_burst, the closed serving loop (benchmarks/bench_serving.py's
+    serving_config: queue 64, block, pump 8) equals the direct run, with
+    its events, cache counters and breaker opens; then the overload cell
+    (flash_crowd, 400 queries a tenant, K = 1, queue 48): breaker opens
+    and closes, shed counts, no query dropped, the charge ledger that of
+    the unshedded run.  With ``cpu``, the overload front end's trace and
+    counters are also held card against CPU."""
+    import numpy as np
+    from repro_torch import core, engine, serve
+    bench = json.loads((ROOT / "BENCH_serving.json").read_text())
+    cfg = bench["config"]
+    host = {f"t{t}": np.random.default_rng(FLEET_SEED + t).uniform(
+        0, 100, size=(cfg["rows"], cfg["columns"]))
+        for t in range(cfg["tenants"])}
+    lo = np.min([d.min(0) for d in host.values()], axis=0)
+    hi = np.max([d.max(0) for d in host.values()], axis=0)
+    args = (cfg["rows"], cfg["columns"], cfg["alpha"], cfg["delta"],
+            cfg["partitions"])
+
+    def stream_of(scenario, qpt):
+        make = (core.make_ingest_scenario if scenario == "ingest_burst"
+                else core.make_drift_scenario)
+        return make(scenario, lo, hi, num_tenants=cfg["tenants"],
+                    queries_per_tenant=qpt, seed=7)
+
+    def fleet(dev, scenario, scheduler):
+        return engine.FleetEngine(
+            {f"t{t}": bench_tenant(t, *args, device=dev,
+                                   ingest=scenario == "ingest_burst")
+             for t in range(cfg["tenants"])}, scheduler())
+
+    bad, rows = [], []
+    for want in bench["results"]:
+        scenario = want["scenario"]
+        fs = stream_of(scenario, cfg["queries_per_tenant"])
+        direct, _ = counted(lambda: fleet(device, scenario,
+                                          engine.UnlimitedScheduler).run(fs))
+        fe = serve.ServeFrontend(
+            fleet(device, scenario, engine.UnlimitedScheduler),
+            serve.FrontendConfig(queue_capacity=64, overflow_policy="block",
+                                 pump_chunk=8, record_latency=True))
+
+        def loop():
+            for event in fs:
+                fe.submit_blocking(event)
+                fe.pump()
+            fe.flush()
+        t0 = time.perf_counter()
+        counted(loop)
+        wall = time.perf_counter() - t0
+        stats = fe.stats()
+        got = {"scenario": scenario, "tenants": len(fs.tenant_ids),
+               "events": len(fs), "queries_per_tenant":
+                   cfg["queries_per_tenant"],
+               "cache": stats["cache"],
+               "breaker_opens": stats["breaker"]["opens"]}
+        lat = np.asarray(fe.latencies) * 1e3
+        same = tenant_traces(fe.result()) == tenant_traces(direct)
+        file_fields = {k: want[k] for k in ("scenario", "tenants", "events",
+                                            "queries_per_tenant")}
+        file_fields["cache"] = want["frontend"]["cache"]
+        file_fields["breaker_opens"] = want["frontend"]["breaker_opens"]
+        if got != file_fields or not same:
+            bad.append((scenario, got, file_fields, same))
+        rows.append({**got, "trace_equals_direct": same,
+                     "events_per_second": len(fs) / wall,
+                     "p50_ms": float(np.percentile(lat, 50)),
+                     "p99_ms": float(np.percentile(lat, 99))})
+
+    fs = stream_of("flash_crowd", overload_queries)
+
+    def overload(dev):
+        ref = fleet(dev, "flash_crowd",
+                    lambda: engine.KConcurrentScheduler(1)).run(fs)
+        fe = serve.ServeFrontend(
+            fleet(dev, "flash_crowd", lambda: engine.KConcurrentScheduler(1)),
+            serve.FrontendConfig(record_latency=False, **SERVING_OVERLOAD))
+        got = fe.run(fs)
+        stats = fe.stats()
+        dropped = sum(overload_queries - len(got.per_tenant[t].query_costs)
+                      for t in fs.tenant_ids)
+        ledger = all(got.per_tenant[t].reorg_indices
+                     == ref.per_tenant[t].reorg_indices
+                     and np.array_equal(got.per_tenant[t].state_seq,
+                                        ref.per_tenant[t].state_seq)
+                     for t in fs.tenant_ids)
+        return {"scenario": "flash_crowd",
+                "queue_capacity": SERVING_OVERLOAD["queue_capacity"],
+                "scheduler": "k-concurrent(1)",
+                "breaker_opens": stats["breaker"]["opens"],
+                "breaker_closes": stats["breaker"]["closes"],
+                "shed_count": stats["shed_count"],
+                "shed_attempts": stats["shed_attempts"],
+                "queries_dropped": dropped,
+                "charge_ledger_identical": ledger}, (fleet_trace(got), stats)
+
+    (over, card), _ = counted(lambda: overload(device))
+    if over != bench["overload"]:
+        bad.append(("overload", over, bench["overload"]))
+    card_equals_cpu = None
+    if cpu is not None:
+        (_, on_cpu), _ = counted(lambda: overload(cpu), dev=cpu)
+        card_equals_cpu = on_cpu == card
+        if not card_equals_cpu:
+            bad.append(("the overload front end's card trace or counters "
+                        "differ from the CPU's",))
+    emit("router_parity", case="BENCH_serving.json", scenarios=rows,
+         overload=over, card_equals_cpu=card_equals_cpu,
+         equal_to_file=not bad)
+    if bad:
+        raise AssertionError(f"router_parity: differs from "
+                             f"BENCH_serving.json: {bad}")
+    return over
+
+
+def router_incremental_parity(device, counted, cpu, rows: int = 20_000,
+                              queries: int = 150) -> None:
+    """(d) Incremental tenants (600 rows a tick) migrated between 2 shards
+    at a third of the stream, the router on run_batched's fleet_scan lane:
+    traces and ledgers equal the unsharded fleet's, card and CPU."""
+    import numpy as np
+    from repro_torch import core, engine
+    tables, lo, hi = ingest_tables(device, 4, rows, 8)
+    host = {tid: d.cpu() for tid, d in tables.items()}
+    stream = core.make_drift_scenario("sudden_shift", lo, hi, num_tenants=4,
+                                      queries_per_tenant=queries, seed=11)
+    events = list(stream)
+
+    def tenants(data):
+        return {tid: oreo_tenant(data[tid], 10.0, 5, 8, 2, 60, 30,
+                                 incremental=True, rows_per_tick=600)
+                for tid in stream.tenant_ids}
+
+    def routed(data):
+        router = engine.FleetRouter(tenants(data), num_shards=2)
+        third = len(events) // 3
+        for ev in events[:third]:
+            router.submit(ev)
+        router.drain(batched=True, compute="fleet_scan")
+        for tid in stream.tenant_ids:
+            src = router.shard_of(tid)
+            router.migrate_tenant(tid, next(s for s in router.shard_ids
+                                            if s != src))
+        for ev in events[third:]:
+            router.submit(ev)
+        router.drain(batched=True, compute="fleet_scan")
+        return router
+
+    got = {}
+    for dev, data in ((device, tables), (cpu, host)):
+        fleet = engine.FleetEngine(tenants(data))
+        ref, _ = counted(lambda: fleet.run(stream), dev=dev)
+        router, _ = counted(lambda: routed(data), dev=dev)
+        res = router.result()
+        got[dev.type] = (tenant_traces(res), {
+            tid: engine_ledgers(router.tenant(tid))
+            for tid in stream.tenant_ids})
+        want = (tenant_traces(ref), {tid: engine_ledgers(fleet.tenant(tid))
+                                      for tid in stream.tenant_ids})
+        if got[dev.type] != want:
+            raise AssertionError(f"router_parity: the incremental router "
+                                 f"on {dev.type} differs from the "
+                                 f"unsharded fleet")
+    migrations = sum(len(v) for v in got[device.type][1].values())
+    if got[device.type] != got[cpu.type] or not migrations:
+        raise AssertionError("router_parity: the incremental router's card "
+                             "trace differs from the CPU's, or it planned "
+                             "no migration")
+    emit("router_parity", case="incremental router, 4 tenants of 20,000 x "
+         "8, all migrated", migrations=migrations, card_equals_cpu=True,
+         equal_to_unsharded=True)
+
+
+def phase_router_parity(device) -> dict:
+    """(a) compute="reference" against the default mode; (b) and (c) the
+    router and the front end against BENCH_router.json and
+    BENCH_serving.json, card against CPU where stated; (d) an incremental
+    router's migrations card against CPU.  Returns the card's launches."""
+    import torch
+    cpu = torch.device("cpu")
+    counters = kernel_counters()
+    launched = {k: 0 for k in counters}
+    t0 = time.perf_counter()
+
+    def counted(fn, dev=device):
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn()
+        now = {k: c.launches - before[k] for k, c in counters.items()}
+        for k, n in now.items():
+            if dev.type == "cuda":
+                launched[k] += n
+            elif n:
+                raise AssertionError("router_parity: a CPU run launched a "
+                                     "kernel")
+        return out, now
+
+    router_reference_mode(device, counted)
+    emit("router_parity", part="a", seconds=time.perf_counter() - t0)
+    bench_router_fields(device, counted, cpu)
+    emit("router_parity", part="b", seconds=time.perf_counter() - t0)
+    bench_serving_fields(device, counted, cpu)
+    emit("router_parity", part="c", seconds=time.perf_counter() - t0)
+    router_incremental_parity(device, counted, cpu)
+    if device.type == "cuda" and not all(launched[k] for k in (
+            "pruning", "fleet_scan", "move_score")):
+        raise AssertionError(f"router_parity: the card runs did not launch "
+                             f"every kernel of the router's paths: "
+                             f"{launched}")
+    emit("router_parity", launches_card=launched,
+         seconds=time.perf_counter() - t0)
+    return launched
+
+
+class ShardTimer:
+    """Times each shard fleet's drains inside a router's: the critical path
+    of one router drain is its slowest shard's drain (shards share no
+    state), summed over the router's drains (benchmarks/bench_router.py's
+    definition, per drain)."""
+
+    def __init__(self, router, device):
+        self.critical = self.serial = 0.0
+        self.drains = 0
+        self._walls = {}
+        inner_router = router.drain
+        for sid in router.shard_ids:
+            shard = router.shard(sid)
+            shard.drain = self._timed(shard.drain, sid, device)
+
+        def drain(**kw):
+            self._walls = {}
+            out = inner_router(**kw)
+            if self._walls:
+                self.critical += max(self._walls.values())
+                self.serial += sum(self._walls.values())
+                self.drains += 1
+            return out
+        router.drain = drain
+
+    def _timed(self, inner, sid, device):
+        def call(**kw):
+            t0 = time.perf_counter()
+            out = inner(**kw)
+            sync(device)
+            self._walls[sid] = self._walls.get(sid, 0.0) + (
+                time.perf_counter() - t0)
+            return out
+        return call
+
+
+def router_arm(label, fn, device) -> tuple:
+    """One arm's main path: counts zeroed just before ``fn``, read just
+    after, the first and every 50th fleet pass audited against the plain
+    version; returns (fn's output, launches, wall seconds)."""
+    import torch
+    counters = kernel_counters()
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for c in counters.values():
+        c.launches = 0
+    audit = ScanAudit(every=50)
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        sync(device)
+    finally:
+        audit.close()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    if audit.checked < -(-audit.calls // 50):
+        raise AssertionError(f"{ROUTER_CELL} {label}: only {audit.checked} "
+                             f"of {audit.calls} passes were audited")
+    emit("router_full", cell=ROUTER_CELL, arm=label,
+         passes_scored=audit.calls, passes_audited=audit.checked)
+    if device.type == "cuda" and not (launches["decision_fused"]
+                                      and launches["pruning"]):
+        raise AssertionError(f"{ROUTER_CELL} {label}: the arm did not launch "
+                             f"decision_fused and pruning: {launches}")
+    return out, launches, wall
+
+
+def process_arm(spec_path: str) -> int:
+    """Arm C's parent process (``--process-arm SPEC``): a ProcessShardSet
+    of ROUTER_SHARDS workers on the card, driven through the stream, one
+    cross-process migration and a tail of traffic.  This process never
+    touches CUDA itself; it writes its traces and measurements next to
+    the spec as a pickle."""
+    import functools
+    import pickle
+    import numpy as np
+    import torch
+    from repro_torch import core, engine
+    from repro_torch.launch import shard_host
+    spec = json.loads(Path(spec_path).read_text())
+    lo, hi = np.array(spec["lo"]), np.array(spec["hi"])
+    stream = core.make_drift_scenario(
+        "sudden_shift", lo, hi, num_tenants=spec["tenants"],
+        queries_per_tenant=spec["queries"], seed=7)
+    extra = core.make_drift_scenario(
+        "sudden_shift", lo, hi, num_tenants=spec["tenants"],
+        queries_per_tenant=spec["extra"], seed=8)
+    factories = {f"t{t}": functools.partial(fleet16_tenant, t, spec["rows"],
+                                            spec["device"])
+                 for t in range(spec["tenants"])}
+    out = {}
+    t0 = time.perf_counter()
+    procs = shard_host.ProcessShardSet(
+        factories, num_shards=spec["shards"],
+        scheduler=engine.SchedulerSpec.k_concurrent(1))
+    try:
+        out["spawn_seconds"] = time.perf_counter() - t0
+        hosts = [procs.host(sid) for sid in procs.shard_ids]
+        for h in hosts:
+            h.kernel_launches(reset=True)
+        drains = []
+        for ev in stream:
+            procs.submit(ev)
+        t0 = time.perf_counter()
+        procs.drain(batched=True, compute="decision_fused")
+        drains.append(time.perf_counter() - t0)
+        res = procs.result()
+        out["trace"] = (tenant_traces(res), res.ticks, res.swaps_deferred,
+                        res.deferred_ticks, res.scheduler_stats)
+        t0 = time.perf_counter()
+        procs.migrate_tenant(spec["migrate"], spec["to"])
+        out["migration_seconds"] = time.perf_counter() - t0
+        for ev in extra:
+            procs.submit(ev)
+        t0 = time.perf_counter()
+        procs.drain(batched=True, compute="decision_fused")
+        drains.append(time.perf_counter() - t0)
+        res = procs.result()
+        out["trace_after_migration"] = (
+            tenant_traces(res), res.ticks, res.swaps_deferred,
+            res.deferred_ticks, res.scheduler_stats)
+        out["drain_seconds"] = drains
+        launches = [h.kernel_launches() for h in hosts]
+        out["launches"] = {k: sum(n[k] for n in launches)
+                           for k in launches[0]}
+        out["worker_max_memory_allocated"] = {
+            sid: procs.host(sid).max_memory_allocated()
+            for sid in procs.shard_ids}
+        out["placement"] = {tid: procs.shard_of(tid) for tid in factories}
+    finally:
+        procs.close()
+    out["parent_cuda_initialized"] = torch.cuda.is_initialized()
+    with open(spec_path + ".out", "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def phase_router_full(device, rows: int = SF1_ROWS, tenants: int = 16,
+                      queries: int = ROUTER_QUERIES,
+                      extra: int = ROUTER_EXTRA,
+                      processes: bool = True) -> dict:
+    """The fleet16-sf1-oreo-router cell: fleet16-sf1-oreo-k1's width and
+    traffic (16 OREO tenants of 6,001,215 x 8, sudden_shift seed 7, alpha
+    20, delta 10, P 16, window 80) with queries per tenant cut to
+    ROUTER_QUERIES, behind the routing plane on one card.  (A) a 4-shard
+    FleetRouter, unlimited, run_batched on decision_fused, four tenants
+    migrated at half the stream: traces equal the unsharded fleet's; (B)
+    ServeFrontend(batched=True) with bench_serving's OVERLOAD settings
+    over a 4-shard router with K = 1 per shard: charge ledgers equal the
+    same router's without the front end; (C) a ProcessShardSet of 4
+    workers on the card (in a child process that never touches CUDA) with
+    one cross-process migration and a tail of traffic: traces equal the
+    inline router's doing the same.  Returns each arm's launches."""
+    import numpy as np
+    import tempfile
+    import torch
+    from repro_torch import core, engine, serve
+    t0 = time.perf_counter()
+    tables = fleet_tables(device, tenants, rows, 8)
+    sync(device)
+    table_seconds = time.perf_counter() - t0
+    lo = torch.stack([d.amin(0) for d in tables.values()]).amin(0).cpu()
+    hi = torch.stack([d.amax(0) for d in tables.values()]).amax(0).cpu()
+    lo, hi = lo.numpy(), hi.numpy()
+    stream = core.make_drift_scenario("sudden_shift", lo, hi,
+                                      num_tenants=tenants,
+                                      queries_per_tenant=queries, seed=7)
+    events = list(stream)
+    emit("router_full", cell=ROUTER_CELL, tenants=tenants, rows=rows,
+         columns=8, queries_per_tenant=queries,
+         reduced={"queries_per_tenant": f"1500 -> {queries}"},
+         shards=ROUTER_SHARDS, events=len(events),
+         table_bytes=sum(d.numel() * 8 for d in tables.values()),
+         table_seconds=table_seconds)
+
+    def tenants_of(**kw):
+        return {tid: oreo_tenant(tables[tid], 20.0, 10, 16, 0, 80, 40, **kw)
+                for tid in stream.tenant_ids}
+
+    runs = {}
+    peak = (torch.cuda.max_memory_allocated if device.type == "cuda"
+            else lambda *_: 0)
+
+    # (A) migration under the unlimited scheduler.
+    ref = engine.FleetEngine(tenants_of()).run_batched(
+        events, compute="decision_fused")
+    router = engine.FleetRouter(tenants_of(), num_shards=ROUTER_SHARDS)
+    timer = ShardTimer(router, device)
+    moved = stream.tenant_ids[::tenants // 4][:4]
+
+    def arm_a():
+        half = len(events) // 2
+        for ev in events[:half]:
+            router.submit(ev)
+        router.drain(batched=True, compute="decision_fused")
+        for tid in moved:
+            src = router.shard_of(tid)
+            router.migrate_tenant(tid, next(s for s in router.shard_ids
+                                            if s != src))
+        for ev in events[half:]:
+            router.submit(ev)
+        router.drain(batched=True, compute="decision_fused")
+        return router.result()
+
+    res, launches, wall = router_arm("A", arm_a, device)
+    if tenant_traces(res) != tenant_traces(ref) or res.num_reorgs <= 0:
+        raise AssertionError(f"{ROUTER_CELL} A: the migrated router's traces "
+                             f"differ from the unsharded fleet's, or no "
+                             f"tenant reorganized")
+    runs["A-migration"] = launches
+    emit("router_full", cell=ROUTER_CELL, arm="A: 4 shards, unlimited, "
+         "4 tenants migrated", migrated=moved, traces_equal_unsharded=True,
+         events_per_second=len(events) / wall,
+         critical_path_events_per_second=len(events) / timer.critical,
+         serial_events_per_second=len(events) / timer.serial,
+         run_wall_seconds=wall, moves=res.num_reorgs,
+         total_cost=res.total_cost, launches=launches,
+         peak_bytes=peak(device), placement=router.placement())
+    del ref, router, res
+    if device.type == "cuda":
+        release(device)
+
+    # (B) the front end under overload, and the same router without it.
+    k1 = engine.SchedulerSpec.k_concurrent(1)
+    plain = engine.FleetRouter(tenants_of(), num_shards=ROUTER_SHARDS,
+                               scheduler=k1)
+    timer = ShardTimer(plain, device)
+    want, want_launches, want_wall = router_arm(
+        "B without the front end",
+        lambda: plain.run_batched(events, compute="decision_fused"), device)
+    want_critical = timer.critical
+    fronted = engine.FleetRouter(tenants_of(), num_shards=ROUTER_SHARDS,
+                                 scheduler=k1)
+    timer = ShardTimer(fronted, device)
+    fe = serve.ServeFrontend(fronted, serve.FrontendConfig(
+        batched=True, compute="decision_fused", record_latency=True,
+        **SERVING_OVERLOAD))
+    got, launches, wall = router_arm("B", lambda: fe.run(events), device)
+    stats = fe.stats()
+    ledger = all(got.per_tenant[t].reorg_indices
+                 == want.per_tenant[t].reorg_indices
+                 and np.array_equal(got.per_tenant[t].state_seq,
+                                    want.per_tenant[t].state_seq)
+                 and len(got.per_tenant[t].query_costs) == queries
+                 for t in stream.tenant_ids)
+    if not (ledger and stats["breaker"]["opens"]):
+        raise AssertionError(f"{ROUTER_CELL} B: the front end changed a "
+                             f"charge ledger or dropped a query, or its "
+                             f"breaker never opened")
+    lat = np.asarray(fe.latencies) * 1e3
+    runs["B-frontend"] = launches
+    runs["B-router"] = want_launches
+    emit("router_full", cell=ROUTER_CELL, arm="B: ServeFrontend(batched) "
+         "over 4 shards, K=1 each, queue 48 block",
+         charge_ledgers_equal_router=True, breaker=stats["breaker"],
+         shed_count=stats["shed_count"],
+         shed_attempts=stats["shed_attempts"], cache=stats["cache"],
+         p50_ms=float(np.percentile(lat, 50)),
+         p99_ms=float(np.percentile(lat, 99)),
+         events_per_second=len(events) / wall,
+         critical_path_events_per_second=len(events) / timer.critical,
+         run_wall_seconds=wall, launches=launches,
+         router_events_per_second=len(events) / want_wall,
+         router_critical_path_events_per_second=len(events) / want_critical,
+         router_launches=want_launches, moves=got.num_reorgs,
+         swaps_deferred=got.swaps_deferred,
+         router_swaps_deferred=want.swaps_deferred, peak_bytes=peak(device))
+    del fronted, fe, got
+    if not processes:
+        return runs
+
+    # (C) process shards: the same K = 1 router (plain) over 4 workers,
+    # then one migration and a tail of traffic, inline and over processes.
+    tid = stream.tenant_ids[0]
+    dst = next(s for s in plain.shard_ids if s != plain.shard_of(tid))
+    tail = core.make_drift_scenario("sudden_shift", lo, hi,
+                                    num_tenants=tenants,
+                                    queries_per_tenant=extra, seed=8)
+    plain.migrate_tenant(tid, dst)
+    after = plain.run_batched(tail, compute="decision_fused")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        spec = Path(tmp) / "arm_c.json"
+        spec.write_text(json.dumps({
+            "lo": lo.tolist(), "hi": hi.tolist(), "tenants": tenants,
+            "rows": rows, "queries": queries, "extra": extra,
+            "shards": ROUTER_SHARDS, "migrate": tid, "to": dst,
+            "device": device.type}))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--process-arm", str(spec)],
+                              capture_output=True, text=True, timeout=600)
+        child_seconds = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"{ROUTER_CELL} C: the process arm failed "
+                                 f"({proc.returncode}):\n{proc.stderr}")
+        import pickle
+        with open(str(spec) + ".out", "rb") as f:
+            out = pickle.load(f)
+    def counters(res):
+        return (tenant_traces(res), res.ticks, res.swaps_deferred,
+                res.deferred_ticks, res.scheduler_stats)
+
+    same = (out["trace"] == counters(want)
+            and out["trace_after_migration"] == counters(after)
+            and out["placement"] == plain.placement())
+    if not same or out["parent_cuda_initialized"]:
+        raise AssertionError(f"{ROUTER_CELL} C: the process shards' traces "
+                             f"differ from the inline router's, or their "
+                             f"parent initialized CUDA")
+    launches = out["launches"]
+    if device.type == "cuda" and not (launches["decision_fused"]
+                                      and launches["pruning"]):
+        raise AssertionError(f"{ROUTER_CELL} C: the workers did not launch "
+                             f"decision_fused and pruning: {launches}")
+    runs["C-processes"] = launches
+    n = len(events) + len(tail)
+    drain = sum(out["drain_seconds"])
+    emit("router_full", cell=ROUTER_CELL, arm="C: ProcessShardSet, 4 "
+         "workers on the card, 1 migration", migrated={tid: dst},
+         traces_equal_inline_router=True,
+         parent_cuda_initialized=out["parent_cuda_initialized"],
+         spawn_seconds=out["spawn_seconds"],
+         migration_seconds=out["migration_seconds"],
+         drain_seconds=out["drain_seconds"],
+         events_per_second=n / drain,
+         critical_path_events_per_second=n / drain,
+         worker_max_memory_allocated=out["worker_max_memory_allocated"],
+         child_process_seconds=child_seconds, launches=launches,
+         card=card_line() if device.type == "cuda" else None)
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3609,7 +4377,10 @@ def main(argv=None) -> int:
                          f"(env and kernel always run)")
     ap.add_argument("--queries", type=int, default=FULL_QUERIES,
                     help=f"full-width query count (>= {MIN_QUERIES})")
+    ap.add_argument("--process-arm", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.process_arm:
+        return process_arm(args.process_arm)
     phases = set(args.phases.split(","))
     unknown = phases - set(PHASES)
     if unknown:
@@ -3656,6 +4427,9 @@ def main(argv=None) -> int:
     if "ingest_parity" in phases:
         phase_ingest_parity(device)
         release(device)
+    if "router_parity" in phases:
+        phase_router_parity(device)
+        release(device)
     runs = {}
     if phases & {"full", "zorder_full"}:
         data, stream = sf10_inputs(device, args.queries)
@@ -3679,6 +4453,10 @@ def main(argv=None) -> int:
     if "ingest_full" in phases:
         for arm, counts in phase_ingest_full(device).items():
             runs[f"{INGEST_CELL}/{arm}"] = counts
+        release(device)
+    if "router_full" in phases:
+        for arm, counts in phase_router_full(device).items():
+            runs[f"{ROUTER_CELL}/{arm}"] = counts
         release(device)
     for name, summary in kernels.items():
         summary["launches"] = (sum(r.get(name, 0) for r in runs.values())

@@ -74,6 +74,10 @@ class StorageBackend(Protocol):
     def serve(self, query: wl.Query) -> float: ...
 
 
+#: The backends' estimation paths (their ``compute`` argument).
+COMPUTE_MODES = ("state_matrix", "reference")
+
+
 class _RegistryMixin:
     """Shared metadata registry + batched estimation over a StateMatrix.
 
@@ -83,13 +87,28 @@ class _RegistryMixin:
     run's lookahead is open (:meth:`open_lookahead`), the query at its
     cursor is scored a block of queries per scan instead
     (:class:`BlockEstimates`); primed costs still come first.
+
+    ``compute`` selects the estimation path: ``"state_matrix"`` (default)
+    is that packed plane; ``"reference"`` keeps no plane and re-pads the
+    requested states' zone maps for every query
+    (:func:`repro_torch.core.layouts.eval_cost_states`), the golden
+    baseline the plane is held against.  The reference package's
+    ``"numpy"``, ``"pallas"`` and ``"pallas_fused"`` modes are three lanes
+    over one plane; the port scans that plane exactly, in float64, on every
+    device, so all three are ``"state_matrix"`` here.  Both paths end in
+    the pruning kernel on a card.
     """
 
     _layouts: Dict[int, L.Layout]
 
-    def _init_registry(self, device: torch.device) -> None:
+    def _init_registry(self, device: torch.device,
+                       compute: str = "state_matrix") -> None:
+        if compute not in COMPUTE_MODES:
+            raise ValueError(f"unknown compute mode {compute!r} (one of "
+                             f"{COMPUTE_MODES})")
         self._layouts = {}
-        self._matrix = StateMatrix(device)
+        self._matrix: Optional[StateMatrix] = (
+            None if compute == "reference" else StateMatrix(device))
         self._primed: Optional[tuple] = None
         self._primed_idx: Optional[tuple] = None
         self._lookahead: Optional[BlockEstimates] = None
@@ -131,10 +150,13 @@ class _RegistryMixin:
         return self._delta
 
     def open_lookahead(self, queries: Sequence[wl.Query], q_lo: np.ndarray,
-                       q_hi: np.ndarray) -> BlockEstimates:
+                       q_hi: np.ndarray) -> Optional[BlockEstimates]:
         """Install a run's lookahead over ``queries`` (their stacked (N, C)
         bounds go to the plane's device in one copy); the caller moves its
-        ``cursor`` and closes it with :meth:`close_lookahead`."""
+        ``cursor`` and closes it with :meth:`close_lookahead`.  None in
+        ``reference`` mode, which scores every query on its own."""
+        if self._matrix is None:
+            return None
         self._lookahead = BlockEstimates(queries, q_lo, q_hi,
                                          self._matrix.device)
         return self._lookahead
@@ -169,6 +191,7 @@ class _RegistryMixin:
     def _primed_costs(self, query: wl.Query) -> Optional[np.ndarray]:
         primed = self._primed
         if (primed is not None and primed[0] is query
+                and self._matrix is not None
                 and primed[1] == self._matrix.version):
             return primed[2]
         return None
@@ -197,11 +220,13 @@ class _RegistryMixin:
 
     def register(self, layout: L.Layout) -> None:
         self._layouts[layout.layout_id] = layout
-        self._matrix.register(layout.layout_id, layout.meta)
+        if self._matrix is not None:
+            self._matrix.register(layout.layout_id, layout.meta)
 
     def deregister(self, state_id: int) -> None:
         self._layouts.pop(state_id, None)
-        self._matrix.deregister(state_id)
+        if self._matrix is not None:
+            self._matrix.deregister(state_id)
 
     def has(self, state_id: int) -> bool:
         return state_id in self._layouts
@@ -214,14 +239,17 @@ class _RegistryMixin:
         return sorted(self._layouts)
 
     @property
-    def state_matrix(self) -> StateMatrix:
-        """The packed metadata plane."""
+    def state_matrix(self) -> Optional[StateMatrix]:
+        """The packed metadata plane (None in ``reference`` mode)."""
         return self._matrix
 
     def estimate_costs(self, state_ids: Sequence[int],
                        query: wl.Query) -> Dict[int, float]:
         """Batched metadata-only c(s, q) for every requested state: one scan
-        over the persistent StateMatrix plane (or primed costs)."""
+        over the persistent StateMatrix plane (or primed costs), or in
+        ``reference`` mode one scan over the states' re-padded zone maps."""
+        if self._matrix is None:
+            return self._reference_costs(state_ids, query)
         costs = self._primed_costs(query)
         if costs is not None:
             return self._primed_dict(costs, state_ids)
@@ -232,10 +260,18 @@ class _RegistryMixin:
         slots = self._matrix.slot
         return {s: float(costs[slots(s)]) for s in ids}
 
+    def _reference_costs(self, state_ids: Sequence[int],
+                         query: wl.Query) -> Dict[int, float]:
+        ids = list(state_ids)
+        metas = [self._layouts[s].meta for s in ids]
+        costs = L.eval_cost_states(metas, query.lo, query.hi)
+        return {s: float(c) for s, c in zip(ids, costs)}
+
     def estimate_vector(self, query: wl.Query) -> np.ndarray:
         """All registered states' c(s, q) as one float64 per-slot vector
         (slot order is :attr:`StateMatrix.state_ids`); primed costs are
-        consumed when valid."""
+        consumed when valid.  Unavailable (AttributeError) in
+        ``reference`` mode, which has no slots."""
         costs = self._primed_costs(query)
         if costs is not None:
             return costs
@@ -253,6 +289,12 @@ class InMemoryBackend(_RegistryMixin):
     scan and :meth:`serve` is usually a memo lookup — still bit-identical
     to ``eval_cost`` on the serving metadata.  :meth:`serve_block` scores
     whole query blocks for the engine's batched ``run`` fast path.
+
+    ``compute="reference"`` (see :class:`_RegistryMixin`) keeps no plane:
+    estimates re-pad the states' zone maps per query, and serving scans
+    the serving layout's own metadata.  It cannot mix states, so it takes
+    neither incremental reorganization nor ingest, and the fleet's
+    batched path refuses it.
     """
 
     #: Reserved StateMatrix id for the materialized serving layout's zone
@@ -260,15 +302,18 @@ class InMemoryBackend(_RegistryMixin):
     SERVING_SHADOW = -1
     #: A primed shadow-slot score is a valid serve memo: the scans are
     #: exact on every device, so the shadow's estimate is the serve cost.
-    #: The fleet's batched path installs such scores directly.
+    #: The fleet's batched path and the serving front end install such
+    #: scores directly.  False on a ``reference`` instance (no shadow).
     _serve_primable = True
 
-    def __init__(self, data: torch.Tensor):
+    def __init__(self, data: torch.Tensor, compute: str = "state_matrix"):
         if not isinstance(data, torch.Tensor) or data.dtype != torch.float64:
             raise TypeError("InMemoryBackend needs the table as a float64 "
                             "tensor on its device (see repro_torch.data)")
         self.data = data
-        self._init_registry(data.device)
+        self._init_registry(data.device, compute)
+        if self._matrix is None:
+            self._serve_primable = False
         self._serving: Optional[L.Layout] = None
         self._serving_cache: Optional[tuple] = None
         self._serve_memo: Optional[tuple] = None
@@ -295,7 +340,8 @@ class InMemoryBackend(_RegistryMixin):
         # Re-registering the shadow fires the StateMatrix listener events,
         # so a mirror keeps scoring this tenant's (possibly hybrid) serving
         # state in the fused pass.
-        self._matrix.register(self.SERVING_SHADOW, meta)
+        if self._matrix is not None:
+            self._matrix.register(self.SERVING_SHADOW, meta)
 
     def _install_base_meta(self, meta: L.PartitionMetadata) -> None:
         """Install a delta-free base state, composing pending deltas on top.
@@ -328,6 +374,11 @@ class InMemoryBackend(_RegistryMixin):
     # -- streaming ingest (see repro_torch.engine.ingest) ---------------
     def enable_ingest(self):
         """Open the write path: appended rows land as delta partitions."""
+        if self._matrix is None:
+            raise ValueError(
+                "ingest needs the packed metadata plane (compute="
+                "'reference' serves straight off the layout object and "
+                "cannot compose delta partitions)")
         if self._delta is None:
             from .ingest import DeltaLog
             self._delta = DeltaLog(len(self.data))
@@ -400,9 +451,9 @@ class InMemoryBackend(_RegistryMixin):
 
     @property
     def supports_incremental(self) -> bool:
-        """Hybrid serving runs on the packed plane, which every backend of
-        the port has."""
-        return True
+        """Hybrid serving needs the packed plane (``reference`` compute
+        serves straight off the layout object and cannot mix states)."""
+        return self._matrix is not None
 
     @property
     def migrating(self) -> bool:
@@ -452,6 +503,8 @@ class InMemoryBackend(_RegistryMixin):
         """Batched metadata-only c(s, q) for every requested state; the
         serving shadow's score rides along and memoizes :meth:`serve`."""
         m = self._matrix
+        if m is None:
+            return super().estimate_costs(state_ids, query)
         costs = self._primed_costs(query)
         if costs is None:
             costs = self._fresh_costs(query)
@@ -494,6 +547,9 @@ class InMemoryBackend(_RegistryMixin):
         return shadow[1]
 
     def serve(self, query: wl.Query) -> float:
+        if self._matrix is None:
+            return float(L.eval_cost(self._serving.serving_meta(),
+                                     query.lo, query.hi))
         memo = self._serve_memo
         if memo is not None and memo[0] is query:
             return memo[1]
@@ -508,6 +564,9 @@ class InMemoryBackend(_RegistryMixin):
         swaps: one B x P scan, and each element bit-identical to the
         per-query :meth:`serve`.
         """
+        if self._matrix is None:
+            return np.atleast_1d(L.eval_cost(self._serving.serving_meta(),
+                                             q_lo, q_hi))
         if len(q_lo) == 0:
             return np.zeros(0)
         mins, maxs, rows, total = self._serving_cache
@@ -533,6 +592,11 @@ class DiskBackend(_RegistryMixin):
     raises is re-raised by :meth:`activate`, so a failed write is never
     served.
 
+    ``compute`` picks the estimation path (see :class:`_RegistryMixin`);
+    serving always scans the store, so ``"reference"`` changes estimates
+    only, and incremental reorganization and ingest work in both modes (as
+    in the reference package).
+
     ``durable=True`` logs every manifest mutation — initial write, layout
     swap, delta append, migration micro-batch — to a crash-safe manifest
     WAL (:class:`repro_torch.data.wal.ManifestWAL`, snapshots every
@@ -543,8 +607,8 @@ class DiskBackend(_RegistryMixin):
     """
 
     def __init__(self, data: torch.Tensor, root: str, compress: bool = True,
-                 background: bool = True, durable: bool = False,
-                 wal_snapshot_every: int = 64):
+                 background: bool = True, compute: str = "state_matrix",
+                 durable: bool = False, wal_snapshot_every: int = 64):
         if not isinstance(data, torch.Tensor) or data.dtype != torch.float64:
             raise TypeError("DiskBackend needs the table as a float64 "
                             "tensor on its device (see repro_torch.data)")
@@ -553,7 +617,7 @@ class DiskBackend(_RegistryMixin):
         self.compress = compress
         self.background = background
         os.makedirs(root, exist_ok=True)
-        self._init_registry(data.device)
+        self._init_registry(data.device, compute)
         self._serving_layout: Optional[L.Layout] = None
         self._serving_store: Optional[PartitionStore] = None
         self._version = 0

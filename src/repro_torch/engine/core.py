@@ -83,7 +83,9 @@ class LayoutEngine:
             if not getattr(backend, "supports_incremental", False):
                 raise ValueError(
                     "incremental=True needs a backend with hybrid-serving "
-                    f"support ({type(backend).__name__} has none)")
+                    f"support ({type(backend).__name__} has none; "
+                    "InMemoryBackend compute='reference' serves straight "
+                    "off the layout object)")
             from .reorg import ReorgExecutor
             self.reorg_executor = ReorgExecutor(
                 backend, rows_per_tick=rows_per_tick,

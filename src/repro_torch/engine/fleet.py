@@ -563,8 +563,9 @@ class FleetEngine:
         if matrix is None or not callable(getattr(backend, "prime_estimates",
                                                   None)):
             raise ValueError(
-                f"tenant {tenant_id!r}: backend has no StateMatrix plane — "
-                f"run_batched needs every tenant on a matrix-backed backend")
+                f"tenant {tenant_id!r}: backend has no StateMatrix plane "
+                f"(compute='reference'?) — run_batched needs every tenant "
+                f"on a matrix-backed backend")
         return matrix
 
     def _ensure_fleet_matrix(self, compute: str) -> FleetMatrix:

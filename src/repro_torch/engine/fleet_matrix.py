@@ -255,6 +255,11 @@ class FleetMatrix:
         self._t = last
         self.version += 1
 
+    def detach_all(self) -> None:
+        """Detach every tenant (each stops mirroring its StateMatrix)."""
+        for tid in list(self._tids):
+            self.detach(tid)
+
     # -- per-state maintenance (O(P*C) per event, on the device) --------
     def _register(self, tid: str, state_id: int,
                   meta: L.PartitionMetadata) -> None:

@@ -1418,3 +1418,170 @@ def test_ingest_enabled_but_unused_changes_no_trace_or_launch(cuda_device,
         for mode in ("run", "fleet_scan", "decision_fused"):
             assert run(sched, mode, True) == run(sched, mode, False), \
                 (sched, mode)
+
+
+# ---------------------------------------------------------------------------
+# The reference compute mode, the routing plane and the serving front end
+# ---------------------------------------------------------------------------
+
+def router_tenants(device, incremental=False, compute="state_matrix", n=4):
+    engines = {}
+    for t in range(n):
+        data = torch.as_tensor(np.random.default_rng(700 + t).uniform(
+            0, 100, size=(2_000, 5)), device=device)
+        cfg = core.OreoConfig(alpha=10.0, seed=2, delta=5, manager=core.
+                              LayoutManagerConfig(target_partitions=8,
+                                                  window_size=60,
+                                                  gen_every=30))
+        engines[f"t{t}"] = engine.LayoutEngine(engine.OreoPolicy(
+            data, core.build_default_layout(0, data, 8),
+            core.make_generator("qdtree"), cfg),
+            engine.InMemoryBackend(data, compute=compute), delta=cfg.delta,
+            incremental=incremental,
+            rows_per_tick=60 if incremental else None)
+    return engines
+
+
+def tenant_traces(res):
+    return {tid: (r.query_costs.tobytes(), tuple(r.reorg_indices),
+                  r.state_seq.tobytes()) for tid, r in res.per_tenant.items()}
+
+
+def router_stream(n=4, qpt=100, seed=11):
+    return core.make_drift_scenario("sudden_shift", np.zeros(5),
+                                    np.full(5, 100.0), num_tenants=n,
+                                    queries_per_tenant=qpt, seed=seed)
+
+
+def test_reference_mode_on_the_card_equals_default_and_cpu(cuda_device):
+    stream = router_stream()
+    before = pruning.scan_matrix.launches
+    got = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        for compute_mode in ("state_matrix", "reference"):
+            fleet = engine.FleetEngine(router_tenants(
+                dev, compute=compute_mode))
+            got[dev.type, compute_mode] = tenant_traces(fleet.run(stream))
+    assert len(set(map(str, got.values()))) == 1
+    assert pruning.scan_matrix.launches > before
+    backend = engine.InMemoryBackend(torch.zeros(4, 2, dtype=torch.float64,
+                                                 device=cuda_device),
+                                     compute="reference")
+    assert backend.state_matrix is None and not backend.supports_incremental
+
+
+@pytest.mark.parametrize("lane", ["fleet_scan", "decision_fused"])
+def test_router_migration_on_the_card_equals_the_cpu(cuda_device, lane):
+    """Incremental tenants migrated between 2 shards mid-stream on a
+    batched lane: traces and ledgers equal the CPU's and the unsharded
+    fleet's; the lane's kernel and move_score launch."""
+    from repro_torch.kernels.move_score import move_score
+    stream = router_stream()
+    events = list(stream)
+    got = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        ref = engine.FleetEngine(router_tenants(dev, incremental=True))
+        want = tenant_traces(ref.run(stream))
+        router = engine.FleetRouter(router_tenants(dev, incremental=True),
+                                    num_shards=2)
+        before = move_score.move_scores.launches
+        third = len(events) // 3
+        for ev in events[:third]:
+            router.submit(ev)
+        router.drain(batched=True, compute=lane)
+        for tid in stream.tenant_ids:
+            src = router.shard_of(tid)
+            router.migrate_tenant(tid, next(s for s in router.shard_ids
+                                            if s != src))
+        for ev in events[third:]:
+            router.submit(ev)
+        router.drain(batched=True, compute=lane)
+        got[dev.type] = (tenant_traces(router.result()), {
+            tid: [m.charges for m in router.tenant(
+                tid).reorg_executor.migrations] for tid in stream.tenant_ids})
+        assert got[dev.type][0] == want
+        if dev.type == "cuda":
+            assert move_score.move_scores.launches > before
+    assert got["cuda"] == got["cpu"]
+
+
+def test_frontend_overload_on_the_card_equals_the_cpu(cuda_device):
+    from repro_torch import serve
+    stream = router_stream(qpt=120)
+    got = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        router = engine.FleetRouter(router_tenants(dev), num_shards=2,
+                                    scheduler=engine.SchedulerSpec
+                                    .k_concurrent(1))
+        fe = serve.ServeFrontend(router, serve.FrontendConfig(
+            queue_capacity=48, breaker_open_frac=0.5, breaker_close_frac=0.1,
+            breaker_min_open_events=16, pump_chunk=4, record_latency=False))
+        res = fe.run(stream)
+        got[dev.type] = (tenant_traces(res), fe.stats())
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][1]["breaker"]["opens"] >= 1
+    assert got["cuda"][1]["cache"]["hits"] + got["cuda"][1]["cache"][
+        "misses"] > 0
+
+
+def test_process_shards_on_the_card_leave_the_parent_without_cuda(
+        cuda_device):
+    """A ProcessShardSet whose workers build their tenants on the card,
+    run from a fresh interpreter: a migration crosses as a file, the traces
+    equal the inline router's on the card, and that parent never
+    initializes CUDA."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    child = f"""
+import functools, json, sys
+sys.path.insert(0, {str(root)!r}); sys.path.insert(0, {str(root / 'src')!r})
+import numpy as np, torch
+import chip_smoke
+from repro_torch import core
+from repro_torch.launch import shard_host
+stream = core.make_drift_scenario("sudden_shift", np.zeros(8),
+    np.full(8, 100.0), num_tenants=4, queries_per_tenant=60, seed=7)
+facs = {{f"t{{t}}": functools.partial(chip_smoke.fleet16_tenant, t, 20000)
+        for t in range(4)}}
+with shard_host.ProcessShardSet(facs, num_shards=2) as procs:
+    for ev in list(stream)[:120]:
+        procs.submit(ev)
+    procs.drain(batched=True)
+    tid = "t0"
+    dst = next(s for s in procs.shard_ids if s != procs.shard_of(tid))
+    procs.migrate_tenant(tid, dst)
+    for ev in list(stream)[120:]:
+        procs.submit(ev)
+    procs.drain(batched=True)
+    res = procs.result()
+    mem = [procs.host(s).max_memory_allocated() for s in procs.shard_ids]
+print(json.dumps({{"init": torch.cuda.is_initialized(), "mem": mem,
+    "dst": dst, "traces": {{t: r.query_costs.tolist()
+                            for t, r in res.per_tenant.items()}}}}))
+"""
+    proc = subprocess.run([sys.executable, "-c", child], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["init"] is False and all(m > 0 for m in out["mem"])
+    sys.path.insert(0, str(root))
+    import chip_smoke
+    stream = core.make_drift_scenario("sudden_shift", np.zeros(8),
+                                      np.full(8, 100.0), num_tenants=4,
+                                      queries_per_tenant=60, seed=7)
+    router = engine.FleetRouter({f"t{t}": chip_smoke.fleet16_tenant(
+        t, 20000, cuda_device) for t in range(4)}, num_shards=2)
+    events = list(stream)
+    for ev in events[:120]:
+        router.submit(ev)
+    router.drain(batched=True)
+    router.migrate_tenant("t0", out["dst"])
+    for ev in events[120:]:
+        router.submit(ev)
+    router.drain(batched=True)
+    want = {t: r.query_costs.tolist()
+            for t, r in router.result().per_tenant.items()}
+    assert out["traces"] == want
