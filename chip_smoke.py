@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases kernel,zorder_parity,zorder_full
     python3 chip_smoke.py --phases kernel,ingest_parity,ingest_full
     python3 chip_smoke.py --phases router_parity,router_full
+    python3 chip_smoke.py --phases forecast_parity,forecast_full
 
 Phases, each printing JSON lines:
 
@@ -162,10 +163,42 @@ Phases, each printing JSON lines:
    a tail of traffic, traces equal to the inline router's; each arm's
    events/s, critical path (events over the slowest shard's drains) and
    launches (arm C's summed over its workers).
+17. ``forecast_parity``: the forecast plane, card against
+   ``BENCH_forecast.json`` and the CPU: (a) its ``forecast_smoke`` section
+   in full (10 scenarios x 3 schedulers, both arms), every cost ratio
+   equal to the file and every trace and ``info()`` card == CPU; (b) from
+   its full section (4 tenants of 20,000 x 8, 1,500 queries, alpha 20),
+   the rows with pre-positions (gradual_drift and cyclic_diurnal, every
+   scheduler) and the unlimited row of the other eight scenarios, every
+   deterministic field equal; (c) the churn fleet of
+   tests/test_forecast_churn.py (ForecastPolicy growing and retiring
+   qd-tree states eagerly), five scenarios x three schedulers:
+   run_batched on both lanes and the unbounded incremental fleet on both
+   planner lanes bitwise equal to ``run``, card == CPU; a forecast engine
+   saved with ``torch.save`` while it holds a grown state stays one table
+   and continues identically; and a ``ProcessShardSet`` of 2 workers on
+   the card migrating a tenant that holds a live grown state, equal to
+   the inline router, the parent loading no engine file.  (b) drives
+   run_batched, bitwise ``run``.  Every job runs in ``FORECAST_WORKERS``
+   spawned processes (host-bound loops) while the script builds the
+   tpch-sf10 table for ``full`` (host work; the card is idle).
+18. ``forecast_full``: the ``fleet16-sf1-forecast-cyclic_diurnal`` cell --
+   16 tenants of 6,001,215 x 8 at ``BENCH_forecast.json``'s full config
+   (alpha 20, delta 10, P 16, window 80, gen_every 40, the default
+   ``ForecastConfig``), cyclic_diurnal seed 7, ``FORECAST_QUERIES``
+   queries a tenant, unlimited: (A) reactive OREO on ``run_batched``
+   (decision_fused), (B) ``ForecastPolicy`` through ``run``, (C) the same
+   through ``run_batched``, bitwise (B), (D) gradual_drift under
+   ``ForecastPolicy`` through ``run`` (the grower's qd-trees over the
+   6M-row tables); each arm's totals, pre-positions, forecasts and
+   accuracy, grower proposals, admissions and build seconds, events/s,
+   decide seconds and the seconds inside ``ForecastPolicy`` but outside
+   its inner policy, peak memory and launches.
 
 Kernel launch counts are reset just before each main path and read just
 after it; every 50th (fleet) or 100th (single table, per-query scan or
-consumed row of a block scan) scoring call, and
+consumed row of a block scan; any pruning call in ``forecast_full``)
+scoring call, and
 every 50th planning call, of a main path is checked against the plain
 version on CPU copies of the same plane, and the first and every 10th
 flash launch of ``serve_full`` and the first and every 10th call of
@@ -206,7 +239,8 @@ FLEET_SEED = 100              # benchmarks/bench_fleet.py: tenant tables
 PHASES = ("kernel", "parity", "fleet_parity", "full", "fleet_full",
           "reorg_parity", "reorg_full", "serve_parity", "serve_full",
           "zorder_parity", "zorder_full", "ingest_parity", "ingest_full",
-          "router_parity", "router_full")
+          "router_parity", "router_full", "forecast_parity",
+          "forecast_full")
 
 
 def emit(phase: str, **fields) -> None:
@@ -4370,6 +4404,755 @@ def phase_router_full(device, rows: int = SF1_ROWS, tenants: int = 16,
     return runs
 
 
+# ---------------------------------------------------------------------------
+# The forecast plane
+# ---------------------------------------------------------------------------
+
+FORECAST_CELL = "fleet16-sf1-forecast-cyclic_diurnal"
+FORECAST_QUERIES = 1_500      # BENCH_forecast.json's full config
+FORECAST_SCENARIO_SEED = 7    # benchmarks/bench_forecast.py: bench_cell seed
+FORECAST_WORKERS = 4          # forecast_parity's job processes
+FORECAST_LABELS = ("unlimited", "k1", "bucket")
+#: The full section's rows run on run_batched, whose traces are run's bit
+#: for bit (the smoke section, the churn fleet and forecast_full's arm C
+#: hold that): it primes each event's estimate from the pass's one launch
+#: where ``run`` launches a scan per event, about a third of a row's time
+#: on the card.
+FORECAST_FULL_LANE = "decision_fused"
+#: BENCH_forecast.json's fields that do not depend on the machine.
+FORECAST_FIELDS = ("scenario", "family", "forecastable", "scheduler",
+                   "tenants", "reactive_total", "forecast_total",
+                   "cost_ratio", "reactive_reorgs", "forecast_reorgs",
+                   "prepositions", "grown_admitted", "forecasts",
+                   "forecast_accuracy")
+
+
+def forecast_schedulers(section: str) -> dict:
+    """benchmarks/bench_forecast.py:149-166's schedulers, by label: the
+    smoke config's token bucket (0.005, capacity 1, empty) or the full
+    config's (0.002, capacity 2)."""
+    from repro_torch import engine
+    return {"unlimited": engine.UnlimitedScheduler,
+            "k1": lambda: engine.KConcurrentScheduler(1),
+            "bucket": (lambda: engine.TokenBucketScheduler(
+                rate=0.005, capacity=1.0, initial=0.0))
+            if section == "smoke" else
+            (lambda: engine.TokenBucketScheduler(rate=0.002, capacity=2.0))}
+
+
+def forecast_tenant(data, alpha: float, delta: int, partitions: int,
+                    forecast: bool, ingest: bool = False):
+    """One tenant of benchmarks/bench_forecast.py (tenant_engine: window
+    80, gen_every 40, seed 0, the arrival-order default layout), its policy
+    wrapped in ForecastPolicy at the default ForecastConfig when
+    ``forecast``; ingest scenarios compact on debt (threshold 1)."""
+    from repro_torch import core, engine
+    from repro_torch import forecast as fc
+    cfg = core.OreoConfig(alpha=alpha, seed=0, delta=delta,
+                          manager=core.LayoutManagerConfig(
+                              target_partitions=partitions, window_size=80,
+                              gen_every=40))
+    policy = engine.OreoPolicy(data, core.build_default_layout(
+        0, data, partitions), core.make_generator("qdtree"), cfg)
+    if forecast:
+        policy = fc.ForecastPolicy(policy, config=fc.ForecastConfig())
+    return engine.LayoutEngine(
+        policy, engine.InMemoryBackend(data), delta=cfg.delta,
+        ingest=engine.IngestConfig(debt_threshold=1.0) if ingest else None)
+
+
+def forecast_churn_tenant(t: int, rows: int = 3_000, device="cuda",
+                          **engine_kw):
+    """One tenant of tests/test_forecast_churn.py's churn fleet
+    (forecast_engine: a rows x 6 table from default_rng(100 + t), alpha
+    10, delta 5, seed 2, P 8, window 60, gen_every 30) whose ForecastPolicy
+    grows eagerly: every forecast source, no gain, cost or alpha bar, one
+    live grown state, retired after 30 idle queries.  Module level, so
+    spawned shard workers can unpickle it; ``engine_kw`` reaches
+    ``LayoutEngine``."""
+    import numpy as np
+    import torch
+    from repro_torch import core, engine
+    from repro_torch import forecast as fc
+    data = torch.as_tensor(np.random.default_rng(FLEET_SEED + t).uniform(
+        0, 100, size=(rows, 6)), device=device)
+    cfg = core.OreoConfig(alpha=10.0, seed=2, delta=5,
+                          manager=core.LayoutManagerConfig(
+                              target_partitions=8, window_size=60,
+                              gen_every=30))
+    inner = engine.OreoPolicy(data, core.build_default_layout(0, data, 8),
+                              core.make_generator("qdtree"), cfg)
+    policy = fc.ForecastPolicy(
+        inner, config=fc.ForecastConfig(
+            grow=True, max_grown=1, grow_retire_after=30,
+            grow_sources=("period", "trend", "adversarial")),
+        grower=fc.QdTreeGrower(data, 8, min_queries=4, gain=0.0,
+                               cost_floor=0.0, alpha=0.0, seed=103))
+    return engine.LayoutEngine(policy, engine.InMemoryBackend(data),
+                               delta=cfg.delta, **engine_kw)
+
+
+def churn_bounds(rows: int, tenants: int = 3) -> tuple:
+    """The column bounds the churn fleet's streams are drawn over."""
+    import numpy as np
+    host = [np.random.default_rng(FLEET_SEED + t).uniform(
+        0, 100, size=(rows, 6)) for t in range(tenants)]
+    return (np.min([d.min(0) for d in host], axis=0),
+            np.max([d.max(0) for d in host], axis=0))
+
+
+def forecast_digest(res) -> str:
+    """A fleet run's trace and every tenant's ``info()``, hashed."""
+    import hashlib
+    import pickle
+    return hashlib.sha256(pickle.dumps((fleet_trace(res), tuple(
+        (tid, sorted(r.info.items())) for tid, r in res.per_tenant.items()))
+    )).hexdigest()
+
+
+def forecast_bench_cells(job: dict, device) -> dict:
+    """One scenario of benchmarks/bench_forecast.py at ``job``'s config,
+    both arms under each of ``job``'s schedulers, with FleetEngine.run (or
+    run_batched on ``job["lane"]``, bitwise the same): the benchmark's
+    row fields (rounded as bench_forecast.py:82-101 rounds them) and each
+    arm's digest."""
+    import numpy as np
+    import torch
+    from repro_torch import core, engine
+    cfg, scenario = job["config"], job["scenario"]
+    host = {f"t{t}": np.random.default_rng(FLEET_SEED + t).uniform(
+        0, 100, size=(cfg["rows"], cfg["columns"]))
+        for t in range(cfg["tenants"])}
+    lo = np.min([d.min(0) for d in host.values()], axis=0)
+    hi = np.max([d.max(0) for d in host.values()], axis=0)
+    data = {tid: torch.as_tensor(d, device=device) for tid, d in host.items()}
+    info = core.workload.SCENARIO_INFO[scenario]
+    maker = (core.make_drift_scenario if info.family == "drift"
+             else core.make_ingest_scenario)
+    fs = maker(scenario, lo, hi, num_tenants=cfg["tenants"],
+               queries_per_tenant=cfg["queries_per_tenant"],
+               seed=FORECAST_SCENARIO_SEED)
+    rows, digests = {}, {}
+    for label in job["schedulers"]:
+        factory = forecast_schedulers(job["section"])[label]
+        arms = {}
+        for forecast in (False, True):
+            fleet = engine.FleetEngine(
+                {tid: forecast_tenant(data[tid], cfg["alpha"], cfg["delta"],
+                                      cfg["partitions"], forecast,
+                                      ingest=info.family == "ingest")
+                 for tid in fs.tenant_ids}, factory())
+            arms[forecast] = (fleet.run_batched(fs, compute=job["lane"])
+                              if job["lane"] else fleet.run(fs))
+        reactive, forecasted = arms[False], arms[True]
+        infos = [forecasted.per_tenant[tid].info for tid in fs.tenant_ids]
+        checks = sum(i["forecast_checks"] for i in infos)
+        hits = sum(i["forecast_hits"] for i in infos)
+        rows[label] = {
+            "scenario": scenario, "family": info.family,
+            "forecastable": info.forecastable,
+            "scheduler": reactive.scheduler, "tenants": len(fs.tenant_ids),
+            "reactive_total": round(reactive.total_cost, 3),
+            "forecast_total": round(forecasted.total_cost, 3),
+            "cost_ratio": round(reactive.total_cost
+                                / forecasted.total_cost, 6),
+            "reactive_reorgs": reactive.num_reorgs,
+            "forecast_reorgs": forecasted.num_reorgs,
+            "prepositions": sum(i["prepositions"] for i in infos),
+            "grown_admitted": sum(i["grown_admitted"] for i in infos),
+            "forecasts": sum(i["forecasts"] for i in infos),
+            "forecast_accuracy": round(hits / checks, 3) if checks else None}
+        digests[label] = (forecast_digest(reactive),
+                          forecast_digest(forecasted))
+    return {"rows": rows, "digests": digests}
+
+
+def forecast_churn_runs(job: dict, device) -> dict:
+    """(c) The churn fleet (3 tenants, 120 queries each) under one drift
+    scenario and each scheduler: ``run``, and on the card also
+    run_batched on both lanes and the unbounded incremental fleet on both
+    planner lanes (every migration must close on alpha at once)."""
+    from repro_torch import core, engine
+    lo, hi = churn_bounds(job["rows"])
+    fs = core.make_drift_scenario(job["scenario"], lo, hi, num_tenants=3,
+                                  queries_per_tenant=120, seed=7)
+    modes = ["run"]
+    if job["all_modes"]:
+        modes += ["fleet_scan", "decision_fused", "incremental/move_score",
+                  "incremental/decision_fused"]
+    digests, admitted, migrations = {}, {}, 0
+    for label, factory in fleet_schedulers().items():
+        for mode in modes:
+            kw = ({"incremental": True,
+                   "reorg_compute": mode.split("/")[1]}
+                  if mode.startswith("incremental") else {})
+            fleet = engine.FleetEngine(
+                {tid: forecast_churn_tenant(int(tid[1:]), job["rows"],
+                                            device, **kw)
+                 for tid in fs.tenant_ids}, factory())
+            res = (fleet.run_batched(fs, compute=mode)
+                   if mode in ("fleet_scan", "decision_fused")
+                   else fleet.run(fs))
+            digests[f"{label}/{mode}"] = forecast_digest(res)
+            admitted[f"{label}/{mode}"] = sum(
+                r.info["grown_admitted"] for r in res.per_tenant.values())
+            for tid in fleet.tenant_ids:
+                ex = fleet.tenant(tid).reorg_executor
+                for m in (ex.migrations if ex is not None else ()):
+                    migrations += 1
+                    if not (m.completed_at == m.begun_at
+                            and m.charged == m.alpha):
+                        raise AssertionError(
+                            f"forecast_parity: {job['scenario']} {label} "
+                            f"{mode} {tid}: a migration did not close on "
+                            f"alpha at once")
+    return {"digests": digests, "admitted": admitted,
+            "migrations": migrations}
+
+
+def forecast_shard_checks(job: dict, device) -> dict:
+    """(c)'s checks that spawn or save engines: the saved forecast engine
+    and the process shards (whose workers' launches count here)."""
+    spool = forecast_spool_check(device, job["rows"])
+    shards = forecast_process_shards(device, job["rows"])
+    return {"spool": spool, "shards": shards,
+            "worker_launches": shards.pop("launches")}
+
+
+def forecast_job(job: dict) -> dict:
+    """One forecast_parity job, run in a spawned worker process on the
+    device it names; returns its results, seconds and this job's kernel
+    launches (none may come from a CPU job)."""
+    import torch
+    torch.set_num_threads(1)
+    device = torch.device(job["device"])
+    counters = kernel_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    run = {"bench": forecast_bench_cells, "churn": forecast_churn_runs,
+           "shards": forecast_shard_checks}[job["kind"]]
+    out = run(job, device)
+    sync(device)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {k: c.launches - before[k]
+                       + out.get("worker_launches", {}).get(k, 0)
+                       for k, c in counters.items()}
+    return out
+
+
+def forecast_spool_check(device, rows: int = 3_000) -> dict:
+    """A churn tenant with a live grown state, saved mid-run with
+    torch.save and loaded again (the file a process-shard migration
+    writes): the grower's table is the manager's and the backend's, one
+    storage in a file of about one table, and the loaded engine's
+    continuation equals the uninterrupted one's."""
+    import io
+    import torch
+    from repro_torch import core
+    lo, hi = churn_bounds(rows)
+    fs = core.make_drift_scenario("cyclic_diurnal", lo, hi, num_tenants=1,
+                                  queries_per_tenant=300, seed=7)
+    queries = fs.per_tenant[fs.tenant_ids[0]].queries
+    straight = forecast_churn_tenant(0, rows, device)
+    for q in queries:
+        straight.step_fast(q)
+    resumed = forecast_churn_tenant(0, rows, device)
+    cut = None
+    for k, q in enumerate(queries):
+        resumed.step_fast(q)
+        if k >= 100 and resumed.policy._grown:
+            cut = k
+            break
+    if cut is None:
+        raise AssertionError("forecast_parity: the churn tenant held no "
+                             "grown state to save")
+    live = list(resumed.policy._grown)
+    buf = io.BytesIO()
+    torch.save(resumed, buf)
+    size = buf.tell()
+    buf.seek(0)
+    resumed = torch.load(buf, weights_only=False)
+    pol = resumed.policy
+    data = pol.inner.manager.data
+    one_storage = (pol.grower.data is data and resumed.backend.data is data
+                   and data.device.type == device.type)
+    for q in queries[cut + 1:]:
+        resumed.step_fast(q)
+    same = (run_trace(straight.result()) == run_trace(resumed.result())
+            and straight.result().info == resumed.result().info)
+    table_bytes = data.numel() * data.element_size()
+    if not (one_storage and same and live and size < 2 * table_bytes):
+        raise AssertionError(f"forecast_parity: the saved forecast engine "
+                             f"is not one table ({size} bytes for a "
+                             f"{table_bytes}-byte table, one storage "
+                             f"{one_storage}) or its continuation differs "
+                             f"({same})")
+    return {"saved_at": cut, "live_grown": live, "file_bytes": size,
+            "table_bytes": table_bytes, "one_storage": one_storage,
+            "continuation_equal": same}
+
+
+def forecast_process_shards(device, rows: int = 3_000) -> dict:
+    """(c) The churn fleet (cyclic_diurnal, 3 tenants) behind 2 process
+    shards on the card, one tenant migrated cross-process while it holds
+    a live grown state: traces and infos equal an inline router doing the
+    same, and the parent opens no engine file.  Returns the workers'
+    launches."""
+    import functools
+    import torch
+    from repro_torch import core, engine
+    from repro_torch.launch import shard_host
+    lo, hi = churn_bounds(rows)
+    fs = core.make_drift_scenario("cyclic_diurnal", lo, hi, num_tenants=3,
+                                  queries_per_tenant=120, seed=7)
+    events = list(fs)
+    chunk = 30
+    router = engine.FleetRouter(
+        {tid: forecast_churn_tenant(int(tid[1:]), rows, device)
+         for tid in fs.tenant_ids}, num_shards=2)
+    moved = cut = None
+    for start in range(0, len(events), chunk):
+        for ev in events[start:start + chunk]:
+            router.submit(ev)
+        router.drain(batched=True, compute="decision_fused")
+        if moved is None and start >= len(events) // 3:
+            moved = next((tid for tid in fs.tenant_ids
+                          if router.tenant(tid).policy._grown), None)
+            if moved is not None:
+                cut = start + chunk
+                dst = next(s for s in router.shard_ids
+                           if s != router.shard_of(moved))
+                live = list(router.tenant(moved).policy._grown)
+                router.migrate_tenant(moved, dst)
+    if moved is None:
+        raise AssertionError("forecast_parity: no churn tenant held a live "
+                             "grown state to migrate")
+    want = router.result()
+    factories = {tid: functools.partial(forecast_churn_tenant, int(tid[1:]),
+                                        rows, device.type)
+                 for tid in fs.tenant_ids}
+    opened = []
+    real_load = torch.load
+
+    def recorded_load(*args, **kw):
+        opened.append(args[:1])
+        return real_load(*args, **kw)
+    t0 = time.perf_counter()
+    torch.load = recorded_load
+    try:
+        with shard_host.ProcessShardSet(factories, num_shards=2) as procs:
+            spawn = time.perf_counter() - t0
+            for h in (procs.host(s) for s in procs.shard_ids):
+                h.kernel_launches(reset=True)
+            for start in range(0, len(events), chunk):
+                for ev in events[start:start + chunk]:
+                    procs.submit(ev)
+                procs.drain(batched=True, compute="decision_fused")
+                if start + chunk == cut:
+                    procs.migrate_tenant(moved, dst)
+            got = procs.result()
+            launches = [procs.host(s).kernel_launches()
+                        for s in procs.shard_ids]
+            placement = {tid: procs.shard_of(tid) for tid in factories}
+    finally:
+        torch.load = real_load
+    same = (tenant_traces(got) == tenant_traces(want)
+            and {t: r.info for t, r in got.per_tenant.items()}
+            == {t: r.info for t, r in want.per_tenant.items()}
+            and placement == router.placement())
+    admitted = sum(r.info["grown_admitted"] for r in got.per_tenant.values())
+    if not (same and admitted and not opened):
+        raise AssertionError(f"forecast_parity: the process shards differ "
+                             f"from the inline router ({same}), grew "
+                             f"nothing ({admitted}) or the parent opened an "
+                             f"engine file ({opened})")
+    return {"migrated": moved, "to": dst, "after_event": cut,
+            "live_grown_at_migration": live, "grown_admitted": admitted,
+            "equal_to_inline_router": same, "spawn_seconds": spawn,
+            "parent_engine_loads": len(opened),
+            "launches": {k: sum(n[k] for n in launches)
+                         for k in launches[0]}}
+
+
+def forecast_jobs(device, bench: dict, churn_rows: int) -> list:
+    """forecast_parity's jobs, the longest first: (c)'s saved engine and
+    process shards, (b) the full section's rows on the card, (a) the smoke
+    section on the card and the CPU, (c)'s churn fleet on the card (every
+    mode) and the CPU (``run``)."""
+    cfg = {k: bench["config"][k] for k in (
+        "tenants", "rows", "columns", "queries_per_tenant", "alpha", "delta",
+        "partitions")}
+    smoke = {k: bench["forecast_smoke"]["config"][k] for k in cfg}
+    scenarios = list(bench["forecast_vs_reactive"])
+    sides = (("card", device.type), ("cpu", "cpu"))
+    jobs = [{"kind": "shards", "scenario": None, "rows": churn_rows,
+             "side": "card", "device": device.type}]
+    for scenario in scenarios:
+        labels = (FORECAST_LABELS if scenario in bench["forecastable_scenarios"]
+                  else FORECAST_LABELS[:1])
+        jobs += [{"kind": "bench", "section": "full", "config": cfg,
+                  "scenario": scenario, "schedulers": [label],
+                  "lane": FORECAST_FULL_LANE, "side": "card",
+                  "device": device.type} for label in labels]
+    for side, dev in sides:
+        jobs += [{"kind": "bench", "section": "smoke", "config": smoke,
+                  "scenario": s, "schedulers": list(FORECAST_LABELS),
+                  "lane": None, "side": side, "device": dev}
+                 for s in scenarios]
+    for side, dev in sides:
+        jobs += [{"kind": "churn", "scenario": s, "rows": churn_rows,
+                  "all_modes": side == "card", "side": side, "device": dev}
+                 for s in FLEET_SCENARIOS]
+    return jobs
+
+
+def phase_forecast_parity(device, workers: int = FORECAST_WORKERS,
+                          churn_rows: int = 3_000, bench=None,
+                          meanwhile=None) -> tuple:
+    """(a) BENCH_forecast.json's forecast_smoke section in full, card ==
+    file and card == CPU; (b) the full section's rows with pre-positions
+    (gradual_drift and cyclic_diurnal, every scheduler) and the unlimited
+    row of the other eight scenarios, card == file field for field; (c)
+    the churn fleet: run_batched on both lanes and the incremental fleet
+    on both planner lanes equal run, card == CPU, then a cross-process
+    migration of a tenant holding a live grown state equal to the inline
+    router, and a saved forecast engine that stays one table.  The jobs
+    all run in ``workers`` spawned processes (the loops are the host's),
+    so this process touches nothing on the card; it runs ``meanwhile()``
+    if given (the script passes the tpch-sf10 table's build, which leaves
+    the card idle).  Returns the card's launches and what ``meanwhile``
+    returned."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    bench = bench or json.loads((ROOT / "BENCH_forecast.json").read_text())
+    t0 = time.perf_counter()
+    jobs = forecast_jobs(device, bench, churn_rows)
+    with cf.ProcessPoolExecutor(max_workers=workers,
+                                mp_context=mp.get_context("spawn")) as pool:
+        futures = [pool.submit(forecast_job, job) for job in jobs]
+        extra = meanwhile() if meanwhile is not None else None
+        results = [f.result() for f in futures]
+    checks = results[0]
+    emit("forecast_parity", case="torch.save of a forecast engine with a "
+         "live grown state", **checks["spool"])
+    emit("forecast_parity", case="ProcessShardSet, 2 shards, a grown-state "
+         "tenant migrated", **checks["shards"],
+         launches_over_workers=checks["worker_launches"],
+         seconds=checks["seconds"])
+    launched = dict.fromkeys(results[0]["launches"], 0)
+    for job, out in zip(jobs, results):
+        for k, n in out["launches"].items():
+            if job["side"] == "cpu" and n:
+                raise AssertionError("forecast_parity: a CPU job launched a "
+                                     "kernel")
+            launched[k] += n
+    by = {(j["kind"], j.get("section"), j["scenario"], j["side"],
+           tuple(j.get("schedulers", ()))): r for j, r in zip(jobs, results)}
+    card, cpu = "card", "cpu"
+
+    # (b) the full section's rows, field for field.
+    want = {(r["scenario"], label): r for r, label in zip(
+        bench["results"], FORECAST_LABELS * len(bench["forecast_vs_reactive"]))}
+    bad, ran = [], []
+    for job, out in zip(jobs, results):
+        if job["kind"] != "bench" or job["section"] != "full":
+            continue
+        for label, got in out["rows"].items():
+            ref = {k: want[job["scenario"], label][k] for k in FORECAST_FIELDS}
+            if got != ref:
+                bad.append((job["scenario"], label, got, ref))
+            ran.append({**got, "label": label,
+                        "seconds_on_card": out["seconds"]})
+    emit("forecast_parity", case="BENCH_forecast.json full section",
+         drive=f"run_batched({FORECAST_FULL_LANE})",
+         rows_run=len(ran), rows=ran, equal_to_file=not bad,
+         why="every scheduler of the two scenarios with pre-positions, the "
+             "unlimited row of the other eight: the script's time limit")
+    # (a) the smoke section: card == file and card == CPU.
+    smoke = bench["forecast_smoke"]["forecast_vs_reactive"]
+    ratios, same = {}, True
+    for scenario in smoke:
+        key = ("bench", "smoke", scenario)
+        on_card = by[key + (card, FORECAST_LABELS)]
+        on_cpu = by[key + (cpu, FORECAST_LABELS)]
+        ratios[scenario] = {label: row["cost_ratio"]
+                            for label, row in on_card["rows"].items()}
+        same &= (on_card["digests"] == on_cpu["digests"]
+                 and on_card["rows"] == on_cpu["rows"])
+    if ratios != smoke:
+        bad.append(("forecast_smoke", ratios, smoke))
+    if not same:
+        bad.append(("forecast_smoke: card traces differ from the CPU's",))
+    emit("forecast_parity", case="BENCH_forecast.json forecast_smoke",
+         forecast_vs_reactive=ratios, equal_to_file=ratios == smoke,
+         card_equals_cpu=same)
+    # (c) the churn fleet: every mode == run, card == CPU.
+    churn = {}
+    for scenario in FLEET_SCENARIOS:
+        on_card = by[("churn", None, scenario, card, ())]
+        on_cpu = by[("churn", None, scenario, cpu, ())]
+        for key, digest in on_card["digests"].items():
+            label, mode = key.split("/", 1)
+            if digest != on_card["digests"][f"{label}/run"]:
+                bad.append(("churn", scenario, key, "differs from run"))
+        for key, digest in on_cpu["digests"].items():
+            if on_card["digests"][key] != digest:
+                bad.append(("churn", scenario, key, "card differs from CPU"))
+        churn[scenario] = {"grown_admitted": on_card["admitted"],
+                           "incremental_migrations": on_card["migrations"]}
+    modes = {k.split("/", 1)[1] for r in churn.values()
+             for k in r["grown_admitted"]}
+    for mode in modes:
+        if not sum(n for r in churn.values()
+                   for k, n in r["grown_admitted"].items()
+                   if k.endswith("/" + mode)):
+            bad.append(("churn", mode, "grew nothing"))
+    emit("forecast_parity", case="churn fleet: run_batched x 2 lanes, "
+         "incremental x 2 planners == run, card == CPU", scenarios=churn,
+         modes=sorted(modes), bitwise_equal=not bad)
+    if bad:
+        raise AssertionError(f"forecast_parity: {bad[:5]}")
+    if device.type == "cuda" and not all(launched[k] for k in (
+            "pruning", "fleet_scan", "decision_fused", "move_score")):
+        raise AssertionError(f"forecast_parity: the card runs did not launch "
+                             f"every kernel of the forecast paths: "
+                             f"{launched}")
+    emit("forecast_parity", jobs=len(jobs), workers=workers,
+         job_seconds=sum(r["seconds"] for r in results),
+         launches_card=launched, seconds=time.perf_counter() - t0)
+    return launched, extra
+
+
+class PruningAudit:
+    """Checks the first and then every ``every``-th pruning call of a run,
+    inside the run: the scan the main path's own launch returned against
+    the plain version on CPU copies of the same bounds and zone-map rows.
+    It wraps the kernel's entry as the engine's compute module sees it and
+    launches nothing itself."""
+
+    def __init__(self, every: int, name: str):
+        import types
+        from repro_torch.engine import compute
+        self.compute, self.every, self.name = compute, every, name
+        self.calls = self.checked = 0
+        self._module = compute.pruning
+        inner = compute.pruning.scan_matrix
+
+        def scan_matrix(q_lo, q_hi, p_min, p_max, *args, **kw):
+            got = inner(q_lo, q_hi, p_min, p_max, *args, **kw)
+            self.calls += 1
+            if (self.calls - 1) % self.every == 0:
+                self.check(q_lo, q_hi, p_min, p_max, got)
+                self.checked += 1
+            return got
+        compute.pruning = types.SimpleNamespace(scan_matrix=scan_matrix)
+
+    def close(self) -> None:
+        self.compute.pruning = self._module
+
+    def check(self, q_lo, q_hi, p_min, p_max, got) -> None:
+        import torch
+        from repro_torch.kernels.pruning import ref
+        want = ref.scan_matrix(q_lo.cpu(), q_hi.cpu(), p_min.cpu(),
+                               p_max.cpu())
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{self.name}: the pruning kernel's scan of "
+                                 f"call {self.calls} differs from the plain "
+                                 f"version")
+
+
+class ForecastMeter:
+    """Seconds every tenant's ForecastPolicy spends outside its inner
+    policy's ``decide``, and its grower's proposals and the qd-tree builds
+    inside them (each ends in a copy to the host, so the time is the
+    device's too).  It wraps the instances' methods and launches
+    nothing."""
+
+    def __init__(self, fleet):
+        from repro_torch.core import qdtree
+        self.qdtree, self._build = qdtree, qdtree.build_qdtree_layout
+        self.seconds = {"decide": 0.0, "inner": 0.0, "propose": 0.0,
+                        "build": 0.0}
+        self.builds = 0
+        self._proposing = False
+        for tid in fleet.tenant_ids:
+            policy = fleet.tenant(tid).policy
+            if not hasattr(policy, "forecaster"):
+                continue
+            policy.decide = self._timed(policy.decide, "decide")
+            policy.inner.decide = self._timed(policy.inner.decide, "inner")
+            if policy.grower is not None:
+                policy.grower.propose = self._timed(policy.grower.propose,
+                                                    "propose")
+        qdtree.build_qdtree_layout = self._built
+
+    def close(self) -> None:
+        self.qdtree.build_qdtree_layout = self._build
+
+    def _timed(self, inner, key: str):
+        def call(*args):
+            t0 = time.perf_counter()
+            self._proposing |= key == "propose"
+            try:
+                return inner(*args)
+            finally:
+                self._proposing &= key != "propose"
+                self.seconds[key] += time.perf_counter() - t0
+        return call
+
+    def _built(self, *args, **kw):
+        if not self._proposing:
+            return self._build(*args, **kw)
+        t0 = time.perf_counter()
+        try:
+            return self._build(*args, **kw)
+        finally:
+            self.seconds["build"] += time.perf_counter() - t0
+            self.builds += 1
+
+    def fields(self) -> dict:
+        s = self.seconds
+        return {"forecast_seconds": s["decide"] - s["inner"],
+                "inner_decide_seconds": s["inner"],
+                "grower_propose_seconds": s["propose"],
+                "grower_build_seconds": s["build"],
+                "grower_builds": self.builds}
+
+
+def forecast_arm(label: str, fleet, stream, lane, device) -> tuple:
+    """One arm of the forecast cell: counts zeroed just before the run and
+    read just after; the first and every 50th fleet pass and every 100th
+    pruning call audited against the plain versions; ``lane`` None drives
+    ``run``, else ``run_batched`` on that lane.  Returns (result, line
+    fields)."""
+    import numpy as np
+    import torch
+    counters = kernel_counters()
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for c in counters.values():
+        c.launches = 0
+    meter = ForecastMeter(fleet)
+    passes = ScanAudit(every=50)
+    scans = PruningAudit(every=100, name=f"{FORECAST_CELL} {label}")
+    events = len(stream)
+    t0 = time.perf_counter()
+    try:
+        res = (fleet.run(stream) if lane is None
+               else fleet.run_batched(stream, compute=lane))
+        sync(device)
+    finally:
+        meter.close()
+        passes.close()
+        scans.close()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    for tid, r in res.per_tenant.items():
+        costs = r.query_costs
+        if not (np.isfinite(costs).all() and (costs >= 0).all()
+                and (costs <= 1).all() and len(r.state_seq) == len(costs)):
+            raise AssertionError(f"{FORECAST_CELL} {label}: {tid}'s trace "
+                                 f"is malformed")
+    if (passes.checked < -(-passes.calls // 50)
+            or scans.checked < -(-scans.calls // 100)):
+        raise AssertionError(f"{FORECAST_CELL} {label}: a pass or a pruning "
+                             f"call went unaudited")
+    if device.type == "cuda" and not (launches["pruning"] and (
+            lane is None or launches[lane])):
+        raise AssertionError(f"{FORECAST_CELL} {label}: the arm did not "
+                             f"launch pruning and its lane: {launches}")
+    infos = [r.info for r in res.per_tenant.values()]
+
+    def total(key):
+        return sum(i.get(key) or 0 for i in infos)
+    checks = total("forecast_checks")
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    return res, {
+        "lane": lane or "run", "events": events, "run_wall_seconds": wall,
+        "events_per_second": events / wall,
+        "decide_seconds": res.decide_seconds,
+        "reorg_seconds": res.reorg_seconds,
+        "serve_seconds": res.serve_seconds, **meter.fields(),
+        "total_cost": res.total_cost, "query_cost": res.total_query_cost,
+        "reorg_cost": res.total_reorg_cost, "moves": res.num_reorgs,
+        "prepositions": total("prepositions"),
+        "forecasts": total("forecasts"), "forecast_checks": checks,
+        "forecast_accuracy": (total("forecast_hits") / checks
+                              if checks else None),
+        "grown_proposed": total("grown_proposed"),
+        "grown_admitted": total("grown_admitted"),
+        "launches": launches, "passes_scored": passes.calls,
+        "passes_audited": passes.checked, "pruning_calls": scans.calls,
+        "pruning_calls_audited": scans.checked, "peak_bytes": peak}
+
+
+def phase_forecast_full(device, rows: int = SF1_ROWS, tenants: int = 16,
+                        queries: int = FORECAST_QUERIES) -> dict:
+    """The fleet16-sf1-forecast-cyclic_diurnal cell: BENCH_forecast.json's
+    full config (alpha 20, delta 10, P 16, window 80, gen_every 40, the
+    default ForecastConfig) at fleet16's width, 16 tenants of 6,001,215 x
+    8 (default_rng(100 + t)), cyclic_diurnal seed 7, unlimited.  Arms: (A)
+    reactive OREO, run_batched on decision_fused; (B) ForecastPolicy,
+    ``run``; (C) ForecastPolicy, run_batched on decision_fused, bitwise
+    (B); (D) gradual_drift under ForecastPolicy, ``run`` (trend forecasts,
+    so grower proposals build qd-trees over the 6M-row tables).  Returns
+    each arm's launches."""
+    import torch
+    from repro_torch import core, engine
+    t0 = time.perf_counter()
+    tables = fleet_tables(device, tenants, rows, 8)
+    sync(device)
+    table_seconds = time.perf_counter() - t0
+    lo = torch.stack([d.amin(0) for d in tables.values()]).amin(0).cpu()
+    hi = torch.stack([d.amax(0) for d in tables.values()]).amax(0).cpu()
+    streams = {s: core.make_drift_scenario(
+        s, lo.numpy(), hi.numpy(), num_tenants=tenants,
+        queries_per_tenant=queries, seed=FORECAST_SCENARIO_SEED)
+        for s in ("cyclic_diurnal", "gradual_drift")}
+    emit("forecast_full", cell=FORECAST_CELL, tenants=tenants, rows=rows,
+         columns=8, queries_per_tenant=queries,
+         reduced=({"queries_per_tenant": f"1500 -> {queries}"}
+                  if queries < 1500 else {}),
+         alpha=20.0, delta=10, partitions=16, scheduler="unlimited",
+         table_bytes=sum(d.numel() * 8 for d in tables.values()),
+         table_seconds=table_seconds)
+    arms = [("A", "reactive OREO, run_batched(decision_fused)", False,
+             "cyclic_diurnal", "decision_fused"),
+            ("B", "ForecastPolicy, run", True, "cyclic_diurnal", None),
+            ("C", "ForecastPolicy, run_batched(decision_fused)", True,
+             "cyclic_diurnal", "decision_fused"),
+            ("D", "gradual_drift, ForecastPolicy, run", True,
+             "gradual_drift", None)]
+    runs, totals, digests = {}, {}, {}
+    for label, what, forecast, scenario, lane in arms:
+        fleet = engine.FleetEngine(
+            {tid: forecast_tenant(tables[tid], 20.0, 10, 16, forecast)
+             for tid in streams[scenario].tenant_ids},
+            engine.UnlimitedScheduler())
+        res, fields = forecast_arm(label, fleet, streams[scenario], lane,
+                                   device)
+        totals[label] = res.total_cost
+        digests[label] = forecast_digest(res)
+        runs[f"{label}-{scenario}"] = fields["launches"]
+        extra = {}
+        if label == "B":
+            extra["reactive_over_forecast"] = totals["A"] / totals["B"]
+        if label == "C":
+            extra["bitwise_equal_B"] = digests["C"] == digests["B"]
+        emit("forecast_full", cell=FORECAST_CELL, arm=f"{label}: {what}",
+             scenario=scenario, **fields, **extra,
+             card=card_line() if device.type == "cuda" else None)
+        del fleet, res
+        if device.type == "cuda":
+            release(device)
+    if digests["C"] != digests["B"]:
+        raise AssertionError(f"{FORECAST_CELL}: run_batched's trace (C) "
+                             f"differs from run's (B)")
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4430,9 +5213,15 @@ def main(argv=None) -> int:
     if "router_parity" in phases:
         phase_router_parity(device)
         release(device)
+    sf10 = None
+    if "forecast_parity" in phases:
+        _, sf10 = phase_forecast_parity(device, meanwhile=(
+            (lambda: sf10_inputs(device, args.queries))
+            if phases & {"full", "zorder_full"} else None))
     runs = {}
     if phases & {"full", "zorder_full"}:
-        data, stream = sf10_inputs(device, args.queries)
+        data, stream = sf10 or sf10_inputs(device, args.queries)
+        del sf10
         if "full" in phases:
             runs["tpch-sf10-oreo"] = {"pruning": phase_full(device, data,
                                                             stream)}
@@ -4457,6 +5246,10 @@ def main(argv=None) -> int:
     if "router_full" in phases:
         for arm, counts in phase_router_full(device).items():
             runs[f"{ROUTER_CELL}/{arm}"] = counts
+        release(device)
+    if "forecast_full" in phases:
+        for arm, counts in phase_forecast_full(device).items():
+            runs[f"{FORECAST_CELL}/{arm}"] = counts
         release(device)
     for name, summary in kernels.items():
         summary["launches"] = (sum(r.get(name, 0) for r in runs.values())

@@ -149,8 +149,8 @@ class DynamicUMTS:
     def force_move(self, state_id: int, reason: str = "preposition") -> None:
         """Deterministically move the decision maker to an active state.
 
-        The hook behind predictive pre-positioning (the forecast plane's
-        ``ForecastPolicy``, not yet ported): the caller pays the
+        The hook behind predictive pre-positioning
+        (:class:`repro_torch.forecast.ForecastPolicy`): the caller pays the
         usual movement cost α for the emitted event; counters, phases and
         the rng stream are untouched, so a wrapper that never calls this is
         bitwise indistinguishable from the bare D-UMTS.  Moving to the

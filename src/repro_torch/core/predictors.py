@@ -7,8 +7,9 @@ favors recently-good states, which empirically cuts reorganization cost by
 ~17-28% (Table II) without hurting query cost.
 
 These are *transition* predictors — they bias where D-UMTS jumps once a
-counter fills.  The *workload* predictors that forecast the next horizon
-of queries belong to the forecast plane, a later slice of the port.
+counter fills.  The *workload* predictors that forecast what the next
+horizon of queries will look like (and pre-position moves ahead of the
+drift) are their own subsystem: :mod:`repro_torch.forecast`.
 """
 from __future__ import annotations
 

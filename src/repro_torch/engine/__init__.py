@@ -70,6 +70,16 @@ from repro_torch.engine.scheduler import (KConcurrentScheduler,
 from repro_torch.engine.state_matrix import StateMatrix
 
 
+def __getattr__(name: str):
+    # PEP 562: the predictive plane (repro_torch.forecast) wraps OreoPolicy
+    # and imports Decision from repro_torch.engine.policies, so its
+    # re-export here must be lazy to keep either import order cycle-free.
+    if name in ("ForecastPolicy", "ForecastConfig"):
+        from repro_torch import forecast as _forecast
+        return getattr(_forecast, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 @runtime_checkable
 class EventSink(Protocol):
     """Anything that accepts typed events and processes them on demand.
@@ -106,7 +116,8 @@ class EventSink(Protocol):
 __all__ = [
     "BatchablePolicy", "DebtMeter", "Decision", "DeltaBatch", "DeltaLog",
     "DiskBackend", "Event", "EventSink", "FleetEngine", "FleetMatrix",
-    "FleetResult", "FleetRouter", "FleetStepResult", "GreedyPolicy",
+    "FleetResult", "FleetRouter", "FleetStepResult", "ForecastConfig",
+    "ForecastPolicy", "GreedyPolicy",
     "HashRing", "InMemoryBackend", "IngestConfig", "IngestEvent",
     "KConcurrentScheduler", "LayoutEngine", "MTSOptimalPolicy",
     "MicroMove", "MigrationPlan", "MigrationRecord", "OfflineOptimalPolicy",

@@ -458,3 +458,12 @@ class OfflineOptimalPolicy:
 
     def info(self) -> dict:
         return {}
+
+
+def __getattr__(name: str):
+    # PEP 562: lazy re-export of the predictive plane (avoids the
+    # forecast -> policies -> forecast import cycle).
+    if name in ("ForecastPolicy", "ForecastConfig"):
+        from repro_torch import forecast as _forecast
+        return getattr(_forecast, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1585,3 +1585,94 @@ print(json.dumps({{"init": torch.cuda.is_initialized(), "mem": mem,
     want = {t: r.query_costs.tolist()
             for t, r in router.result().per_tenant.items()}
     assert out["traces"] == want
+
+
+def churn_engine(device, t, **kw):
+    """A tenant whose ForecastPolicy grows and retires qd-tree states
+    eagerly (every forecast source, no admission bars, one live grown
+    state, retired after 30 idle queries)."""
+    from repro_torch import forecast
+    data = torch.as_tensor(np.random.default_rng(100 + t).uniform(
+        0, 100, size=(3_000, 6)), device=device)
+    cfg = core.OreoConfig(alpha=10.0, seed=2, delta=5, manager=core.
+                          LayoutManagerConfig(target_partitions=8,
+                                              window_size=60, gen_every=30))
+    inner = engine.OreoPolicy(data, core.build_default_layout(0, data, 8),
+                              core.make_generator("qdtree"), cfg)
+    policy = forecast.ForecastPolicy(
+        inner, config=forecast.ForecastConfig(
+            max_grown=1, grow_retire_after=30,
+            grow_sources=("period", "trend", "adversarial")),
+        grower=forecast.QdTreeGrower(data, 8, min_queries=4, gain=0.0,
+                                     cost_floor=0.0, alpha=0.0, seed=103))
+    return engine.LayoutEngine(policy, engine.InMemoryBackend(data),
+                               delta=cfg.delta, **kw)
+
+
+def churn_stream(num_tenants=3, qpt=120):
+    return core.make_drift_scenario("cyclic_diurnal", np.zeros(6),
+                                    np.full(6, 100.0),
+                                    num_tenants=num_tenants,
+                                    queries_per_tenant=qpt, seed=7)
+
+
+def test_forecast_churn_fleet_on_the_card_equals_run_and_the_cpu(
+        cuda_device):
+    """Grown states registered and retired mid-pass: run_batched on both
+    lanes equals run on the card, and the card equals the CPU."""
+    from repro_torch.kernels.decision_fused import decision_fused
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    stream = churn_stream()
+    got = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        for mode in ("run", "fleet_scan", "decision_fused"):
+            fleet = engine.FleetEngine({tid: churn_engine(dev, int(tid[1:]))
+                                        for tid in stream.tenant_ids})
+            before = (fleet_scan.scan_fleet.launches,
+                      decision_fused.fused_decision.launches)
+            res = (fleet.run(stream) if mode == "run"
+                   else fleet.run_batched(stream, compute=mode))
+            got[dev.type, mode] = (tenant_traces(res), {
+                t: r.info for t, r in res.per_tenant.items()})
+            if dev.type == "cuda" and mode != "run":
+                after = (fleet_scan.scan_fleet.launches,
+                         decision_fused.fused_decision.launches)
+                assert after[mode == "decision_fused"] \
+                    > before[mode == "decision_fused"]
+    assert len(set(map(str, got.values()))) == 1
+    assert sum(i["grown_admitted"]
+               for i in got["cuda", "run"][1].values()) > 0
+
+
+def test_forecast_engine_saved_mid_run_on_the_card_continues_identically(
+        cuda_device):
+    """torch.save / torch.load of a forecast engine holding a live grown
+    state: the grower's table stays the manager's (one storage on the
+    card) and the continuation equals the uninterrupted run."""
+    import io
+    queries = churn_stream(num_tenants=1, qpt=300).per_tenant["t0"].queries
+    straight = churn_engine(cuda_device, 0)
+    for q in queries:
+        straight.step_fast(q)
+    resumed = churn_engine(cuda_device, 0)
+    k = 0
+    while k < 100 or not resumed.policy._grown:
+        resumed.step_fast(queries[k])
+        k += 1
+    buf = io.BytesIO()
+    torch.save(resumed, buf)
+    data = resumed.backend.data
+    assert buf.tell() < 2 * data.numel() * data.element_size()
+    buf.seek(0)
+    resumed = torch.load(buf, weights_only=False)
+    policy = resumed.policy
+    assert policy.grower.data is policy.inner.manager.data
+    assert policy.grower.data is resumed.backend.data
+    assert policy.grower.data.device.type == "cuda"
+    for q in queries[k:]:
+        resumed.step_fast(q)
+    a, b = straight.result(), resumed.result()
+    assert np.array_equal(a.query_costs, b.query_costs)
+    assert a.reorg_indices == b.reorg_indices
+    assert np.array_equal(a.state_seq, b.state_seq)
+    assert a.info == b.info and a.info["grown_admitted"] > 0
