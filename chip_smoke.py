@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases kernel,ingest_parity,ingest_full
     python3 chip_smoke.py --phases router_parity,router_full
     python3 chip_smoke.py --phases forecast_parity,forecast_full
+    python3 chip_smoke.py --phases train_parity,train_full
 
 Phases, each printing JSON lines:
 
@@ -55,7 +56,13 @@ Phases, each printing JSON lines:
    both of its routes in bfloat16 (tensor cores, timed as ``ms``, and the
    scalar one as ``earlier_design_ms``) and the scalar one in float32,
    also timing PyTorch's ``scaled_dot_product_attention`` on the same
-   tensors as ``library_ms`` (the port never calls it).
+   tensors as ``library_ms`` (the port never calls it).  The flash
+   backward kernel (``csrc/flash_attention_bwd.cu``) runs at qwen3-1.7b's
+   training shape (4, 2048, 16/8, 128) and the forward's edge shapes, in
+   bfloat16 and float32: each gradient within 2e-2 (bf16) or 1e-4
+   (float32) x its max |grad| of the plain backward, bitwise equal across
+   two launches, timed beside the plain backward and ``torch.autograd.grad``
+   of SDPA's output (``library_ms``).
 3. ``parity``: the single-table loop at 20,000 rows x 8 columns and 1,500
    queries under OREO, Static, Greedy and Regret, on the card and on the
    CPU; the traces must be bitwise equal.
@@ -186,7 +193,8 @@ Phases, each printing JSON lines:
    16 tenants of 6,001,215 x 8 at ``BENCH_forecast.json``'s full config
    (alpha 20, delta 10, P 16, window 80, gen_every 40, the default
    ``ForecastConfig``), cyclic_diurnal seed 7, ``FORECAST_QUERIES``
-   queries a tenant, unlimited: (A) reactive OREO on ``run_batched``
+   (750 of the config's 1,500, cut for the script's time) queries a
+   tenant, unlimited: (A) reactive OREO on ``run_batched``
    (decision_fused), (B) ``ForecastPolicy`` through ``run``, (C) the same
    through ``run_batched``, bitwise (B), (D) gradual_drift under
    ``ForecastPolicy`` through ``run`` (the grower's qd-trees over the
@@ -194,6 +202,28 @@ Phases, each printing JSON lines:
    accuracy, grower proposals, admissions and build seconds, events/s,
    decide seconds and the seconds inside ``ForecastPolicy`` but outside
    its inner policy, peak memory and launches.
+19. ``train_parity``: the training substrate, card against CPU: (a) in
+   float32 (TF32 off), qwen3-1.7b at full width cut to 2 layers, weights
+   from a numpy seed in both copies: the loss and every gradient of
+   ``loss_fn`` on (2, 128) tokens (loss within 1e-5 relative, each
+   gradient within 1e-4 x its max |g|), then 3 ``build_train_step``
+   steps whose losses agree within 1e-4; the card's steps launch the
+   forward kernel's scalar route and the backward kernel; (b) at the smoke
+   config in bf16 on the card, a ``FaultTolerantTrainer`` run of 20 steps
+   with a fault injected at step 13 ends bitwise equal to the clean run
+   (restarts 1 and 0); (c) ``OreoDataPipeline`` at tests/test_substrate.py's
+   config (20,000 documents, 1,500 queries): batches and stats bitwise
+   equal card and CPU.
+20. ``train_full``: the ``qwen3-1.7b-train`` cell -- qwen3-1.7b at full
+   width and depth in bf16, weights drawn on the card from a seeded
+   generator, per-layer remat, the default ``OptimizerConfig``, 10 steps
+   of ``build_train_step`` on 4 x 2048-token batches from
+   ``OreoDataPipeline`` over ``synth_corpus(20_000, 2048, 151936)`` at
+   alpha 80; the first step run twice from one state must give the same
+   bits; s per step, tokens/s, losses, peak memory, the pipeline's scan
+   fraction and reorganizations, launches (forward 56 a step, backward
+   28, pruning), then one step under torch.profiler (the backward
+   kernel's share of device time, the idle share).
 
 Kernel launch counts are reset just before each main path and read just
 after it; every 50th (fleet) or 100th (single table, per-query scan or
@@ -214,6 +244,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -240,7 +271,7 @@ PHASES = ("kernel", "parity", "fleet_parity", "full", "fleet_full",
           "reorg_parity", "reorg_full", "serve_parity", "serve_full",
           "zorder_parity", "zorder_full", "ingest_parity", "ingest_full",
           "router_parity", "router_full", "forecast_parity",
-          "forecast_full")
+          "forecast_full", "train_parity", "train_full")
 
 
 def emit(phase: str, **fields) -> None:
@@ -3050,6 +3081,466 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
 
 
 # ---------------------------------------------------------------------------
+# Training: the flash backward kernel, training card against CPU, and the
+# qwen3-1.7b-train cell
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_SEED = 4321
+TRAIN_BATCH = 4
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 10
+TRAIN_DOCS = 20_000
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # x max |grad| a tensor
+FLASH_BWD_SHAPES = [  # (name, B, T, S, Hq, Hkv, dh, kwargs, head_pad)
+    ("qwen3-1.7b train", 4, 2048, 2048, 16, 8, 128, {}, 0),
+    ("ragged", 2, 1000, 1000, 16, 8, 128, {}, 0),
+    ("prefix_len 96", 2, 128, 128, 16, 8, 128, {"prefix_len": 96}, 0),
+    ("prefix_len 200", 1, 512, 512, 16, 8, 128, {"prefix_len": 200}, 0),
+    ("q_offset 64", 2, 64, 128, 16, 8, 128, {"q_offset": 64}, 0),
+    ("kv_valid_len 0", 2, 128, 128, 16, 8, 128, {"kv_valid_len": 0}, 0),
+    ("dh 256 MQA", 1, 200, 200, 8, 1, 256, {}, 0),
+    ("dh 192 head-strided views", 1, 130, 130, 6, 2, 192, {}, 2),
+    ("g 8", 1, 256, 256, 32, 4, 128, {}, 0),
+]
+
+
+def flash_bwd_bound(b, t, s, hq, hkv, dh, kw, dtype, device) -> dict:
+    """Least time for the backward: 10 dh flops per visible (query, key)
+    pair of this input (QK^T, dO V^T, dV, dQ, dK; the mask counted exactly)
+    at the type's peak, against q, k, v, out and dout read once and dq, dk,
+    dv written once."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref
+    kv_limit = s if kw.get("kv_valid_len") is None else kw["kv_valid_len"]
+    q_pos = kw.get("q_offset", 0) + torch.arange(t, device=device)
+    mask = ref.visible(q_pos, torch.arange(s, device=device),
+                       kw.get("causal", True), kw.get("prefix_len", 0),
+                       kv_limit)
+    pairs = int(mask.sum())
+    ops = 10 * dh * b * hq * pairs
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = size * dh * (4 * b * t * hq + 4 * b * s * hkv)
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"pairs": pairs, "ops": ops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def sdpa_backward_ms(q, k, v, dout, kw, reps: int):
+    """CUDA-event ms of torch.autograd.grad of PyTorch's
+    scaled_dot_product_attention output alone, after its forward, on the
+    same tensors: the backward's ``library_ms`` (the port never calls it).
+    None, with the error, where SDPA's backward refuses the operands."""
+    import torch
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    try:
+        out = sdpa(*leaves, **kw)
+        d_out = dout.transpose(1, 2)
+
+        def grad():
+            torch.autograd.grad(out, leaves, d_out, retain_graph=True)
+        return cuda_time_ms(grad, reps), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+
+
+def phase_flash_bwd_kernel(device) -> dict:
+    """flash_attention_bwd against its plain backward on the card over
+    FLASH_BWD_SHAPES in bfloat16 and float32, each tensor within
+    FLASH_BWD_TOL x its max |grad| and bitwise equal across two launches;
+    CUDA-event times of the kernel, the plain backward and SDPA's backward;
+    returns the kernel's summary at qwen3-1.7b's training shape in
+    bfloat16."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref
+    rng = np.random.default_rng(5)
+    results, max_err = [], 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        tol = FLASH_BWD_TOL[dname]
+        for name, b, t, s, hq, hkv, dh, kw, pad in FLASH_BWD_SHAPES:
+            q, k, v = flash_operands(rng, b, t, s, hq, hkv, dh, dtype,
+                                     device, pad)
+            dout = flash_operands(rng, b, t, t, hq, hkv, dh, dtype, device,
+                                  pad)[0]
+            out = fa.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_bwd(q, k, v, out, dout, **kw)
+            got = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
+            again = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
+            torch.cuda.synchronize()
+            row = {"shape": name, "dtype": dname, "b": b, "t": t, "s": s,
+                   "hq": hq, "hkv": hkv, "dh": dh, **kw, "tolerance": tol,
+                   "bitwise_repeat": all(torch.equal(x, y)
+                                         for x, y in zip(got, again)),
+                   "finite": all(bool(torch.isfinite(x).all())
+                                 for x in got)}
+            ok = row["bitwise_repeat"] and row["finite"]
+            for gname, x, w in zip(("dq", "dk", "dv"), got, want):
+                err = float((x.float() - w.float()).abs().max())
+                scale = float(w.float().abs().max())
+                row[f"{gname}_max_abs_err"], row[f"{gname}_max"] = err, scale
+                ok = ok and (err <= tol * scale or err == 0.0)
+                max_err = max(max_err, err)
+            if kw.get("kv_valid_len") == 0:
+                ok = ok and not any(bool(x.float().abs().max()) for x in got)
+            if not ok:
+                emit("kernel", kernel="flash_attention_bwd", **row)
+                raise AssertionError(f"flash_attention_bwd disagrees with "
+                                     f"its plain backward (or with itself) "
+                                     f"at {name} {dname}")
+            big = t * s >= 1_000_000
+            row["ms"] = cuda_time_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, out, dout, **kw),
+                10 if big else 50)
+            row["plain_ms"] = cuda_time_ms(
+                lambda: ref.flash_attention_bwd(q, k, v, out, dout, **kw),
+                3 if big else 10)
+            row["library_ms"], lib_err = sdpa_backward_ms(
+                q, k, v, dout, kw, 10 if big else 50)
+            if lib_err:
+                row["library_error"] = lib_err
+            row.update(flash_bwd_bound(b, t, s, hq, hkv, dh, kw, dtype,
+                                       device))
+            emit("kernel", kernel="flash_attention_bwd", **row)
+            results.append(row)
+    main = results[0]
+    return {"name": "flash_attention.flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:122",
+            "max_abs_err": max_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
+
+
+def flash_counts() -> tuple:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    return (fa.flash_attention.launches, fa.flash_attention_bwd.launches,
+            dict(fa.flash_attention.launches_by_route))
+
+
+def reset_flash_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+    by_route = fa.flash_attention.launches_by_route
+    by_route.update(dict.fromkeys(by_route, 0))
+
+
+def token_batches(vocab: int, n: int, shape, seed: int) -> list:
+    """``n`` next-token batches of host int32 tokens (last target -1)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, vocab, shape, dtype=np.int32)
+        targets = np.roll(toks, -1, 1)
+        targets[:, -1] = -1
+        out.append({"tokens": toks, "targets": targets})
+    return out
+
+
+def train_parity_steps(device, layers: int, batch: int, seq: int,
+                       steps: int) -> None:
+    """(a): float32 (TF32 off), qwen3-1.7b at full width cut to ``layers``
+    layers, weights from a numpy seed in both copies; loss and every
+    gradient card == CPU, then ``steps`` train steps' losses."""
+    import dataclasses
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, transformer
+    from repro_torch.train import (OptimizerConfig, build_train_step,
+                                   init_opt_state)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=layers)
+    tree = numpy_transformer(cfg, TRAIN_SEED)
+    batches = token_batches(cfg.vocab, steps, (batch, seq), TRAIN_SEED)
+    opt_cfg = OptimizerConfig()
+    runs = {}
+    for kind, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        model = build_model(cfg, dev)
+        params = transformer.trainable(
+            convert.transformer_params(tree, cfg, dev, torch.float32))
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        names, leaves = zip(*params.named_parameters())
+        loss = model.loss_fn(params, batches[0])
+        grads = {n: g.float().cpu() for n, g in
+                 zip(names, torch.autograd.grad(loss, leaves))}
+        step = build_train_step(model, opt_cfg)
+        losses = []
+        for b in batches:
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+        runs[kind] = (float(loss.detach()), grads, losses,
+                      time.perf_counter() - t0,
+                      flash_counts())
+        del model, params, state
+    card, host = runs["card"], runs["cpu"]
+    worst = 0.0
+    for n, g in host[1].items():
+        err = float((card[1][n] - g).abs().max())
+        scale = float(g.abs().max())
+        if not (err <= 1e-4 * scale or err == 0.0):
+            raise AssertionError(f"train_parity: gradient {n} differs card "
+                                 f"vs CPU by {err} (max |g| {scale})")
+        worst = max(worst, err / scale if scale else 0.0)
+    loss_rel = abs(card[0] - host[0]) / abs(host[0])
+    step_rel = max(abs(a - b) / abs(b) for a, b in zip(card[2], host[2]))
+    fwd, bwd, routes = card[4]
+    emit("train_parity", part="a", model=f"{TRAIN_ARCH} full width, "
+         f"{layers} layers", dtype="float32", tokens=[batch, seq],
+         steps=steps, loss_card=card[0], loss_cpu=host[0],
+         loss_rel_err=loss_rel, worst_grad_err_over_max=worst,
+         step_losses_card=card[2], step_losses_cpu=host[2],
+         step_loss_rel_err=step_rel, card_seconds=card[3],
+         cpu_seconds=host[3], flash_launches_card=fwd,
+         flash_launches_by_route=routes, flash_bwd_launches_card=bwd)
+    if loss_rel > 1e-5 or step_rel > 1e-4:
+        raise AssertionError(f"train_parity: losses differ card vs CPU "
+                             f"(loss {loss_rel}, steps {step_rel})")
+    if (fwd, bwd) != (2 * layers * (steps + 1), layers * (steps + 1)) or \
+            routes["scalar"] != fwd:
+        raise AssertionError(f"train_parity: {fwd} forward ({routes}) and "
+                             f"{bwd} backward flash launches on the card")
+
+
+def train_resume(device, steps: int = 20, fault_at: int = 13) -> None:
+    """(b): at the smoke config in bf16 on the card, a FaultTolerantTrainer
+    run with a fault injected at ``fault_at`` ends bitwise equal to the
+    clean run."""
+    import copy
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train import (FaultTolerantTrainer, OptimizerConfig,
+                                   build_train_step, checkpoint,
+                                   init_train_state)
+    cfg = get_arch(TRAIN_ARCH, smoke=True)
+    model = build_model(cfg, device)
+    opt_cfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=5, total_steps=100)
+    step = build_train_step(model, opt_cfg)
+    state0 = init_train_state(model, torch.Generator(device).manual_seed(0),
+                              opt_cfg)
+    batches = token_batches(cfg.vocab, steps, (4, 32), TRAIN_SEED + 1)
+
+    def batch_fn(i):
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in batches[i].items()}
+    armed = {"on": True}
+
+    def fault_hook(s):
+        if s == fault_at and armed["on"]:
+            armed["on"] = False
+            raise RuntimeError("injected node failure")
+    reset_flash_counts()
+    with tempfile.TemporaryDirectory() as td:
+        clean = FaultTolerantTrainer(step, copy.deepcopy(state0), batch_fn,
+                                     ckpt_dir=td + "/a", ckpt_every=5)
+        final_clean = clean.run(steps)
+        faulty = FaultTolerantTrainer(step, copy.deepcopy(state0), batch_fn,
+                                      ckpt_dir=td + "/b", ckpt_every=5,
+                                      fault_hook=fault_hook)
+        final_faulty = faulty.run(steps)
+    fwd, bwd, routes = flash_counts()
+    pairs = list(zip(checkpoint._leaves(final_clean),
+                     checkpoint._leaves(final_faulty)))
+    equal = all(a[0] == b[0] and torch.equal(a[1], b[1]) for a, b in pairs)
+    on_card = all(a[1].device == b[1].device == torch.device(device)
+                  for a, b in pairs)
+    emit("train_parity", part="b", model=f"{TRAIN_ARCH} smoke",
+         dtype="bfloat16", steps=steps, fault_at=fault_at,
+         restarts_clean=clean.restarts, restarts_faulty=faulty.restarts,
+         leaves=len(pairs), bitwise_equal=equal, on_card=on_card,
+         final_loss=clean.metrics_log[-1]["loss"],
+         flash_launches_card=fwd, flash_launches_by_route=routes,
+         flash_bwd_launches_card=bwd)
+    if (clean.restarts, faulty.restarts) != (0, 1):
+        raise AssertionError(f"train_parity: restarts {clean.restarts} and "
+                             f"{faulty.restarts}, one fault injected")
+    if not (equal and on_card):
+        raise AssertionError("train_parity: the resumed run differs from "
+                             "the clean one")
+    # Each run trains `steps` steps, the faulty one replays 13 - 10 more.
+    n = 2 * steps + fault_at - fault_at // 5 * 5
+    if (fwd, bwd) != (2 * cfg.n_layers * n, cfg.n_layers * n):
+        raise AssertionError(f"train_parity: {fwd} forward and {bwd} "
+                             f"backward flash launches for {n} steps")
+
+
+def train_pipeline_parity(device, steps: int = 1500) -> None:
+    """(c): tests/test_substrate.py's OreoDataPipeline config on the card
+    and on the CPU: batches and stats bitwise equal."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.data import (OreoDataPipeline, mixture_recipe,
+                                  synth_corpus)
+    from repro_torch.kernels.pruning import pruning
+    meta, tokens = synth_corpus(n_docs=20_000, doc_len=32, vocab=100, seed=0)
+    runs = {}
+    for kind, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        pruning.scan_matrix.launches = 0
+        t0 = time.perf_counter()
+        pipe = OreoDataPipeline(
+            meta, tokens, mixture_recipe(meta, total_steps=steps, seed=1,
+                                         segment_length=(300, 500)),
+            batch_size=4, seq_len=32, alpha=40.0, device=dev)
+        batches = list(pipe)
+        runs[kind] = (batches, dataclasses.asdict(pipe.stats),
+                      time.perf_counter() - t0,
+                      pruning.scan_matrix.launches)
+    card, host = runs["card"], runs["cpu"]
+    equal = len(card[0]) == len(host[0]) == steps and all(
+        np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype
+        for a, b in zip(card[0], host[0]) for k in ("tokens", "targets"))
+    emit("train_parity", part="c", batches=len(card[0]),
+         batches_equal=equal, stats_card=card[1], stats_cpu=host[1],
+         card_seconds=card[2], cpu_seconds=host[2],
+         pruning_launches_card=card[3])
+    if not equal or card[1] != host[1]:
+        raise AssertionError("train_parity: the pipeline's batches or stats "
+                             "differ between card and CPU")
+    if card[3] <= 0:
+        raise AssertionError("train_parity: the card's pipeline launched no "
+                             "pruning kernel")
+
+
+def phase_train_parity(device, layers: int = 2, batch: int = 2,
+                       seq: int = 128, steps: int = 3) -> None:
+    """(a) float32 training card against CPU, (b) a fault-injected
+    FaultTolerantTrainer run bitwise equal to a clean one on the card, (c)
+    the OREO data pipeline card against CPU."""
+    train_parity_steps(device, layers, batch, seq, steps)
+    release(device)
+    train_resume(device)
+    train_pipeline_parity(device)
+
+
+def cell_train(device, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
+               seq: int = TRAIN_SEQ, docs: int = TRAIN_DOCS,
+               arch: str = TRAIN_ARCH) -> dict:
+    """qwen3-1.7b-train: qwen3-1.7b at full width and depth in bf16
+    (hf:Qwen/Qwen3-1.7B, configs/qwen3_1p7b.py), weights drawn on the card
+    from a seeded generator, per-layer remat, the default OptimizerConfig;
+    ``steps`` steps of build_train_step on batches of ``batch`` x ``seq``
+    tokens from OreoDataPipeline over synth_corpus(docs, seq, vocab) at
+    alpha 80.  The first step is run twice from one state and must give the
+    same bits.  Returns the main path's launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import (OreoDataPipeline, mixture_recipe,
+                                  synth_corpus)
+    from repro_torch.kernels.pruning import pruning
+    from repro_torch.models import build_model
+    from repro_torch.train import (OptimizerConfig, build_train_step,
+                                   init_train_state)
+    name = f"{arch}-train"
+    cfg = get_arch(arch)
+    model = build_model(cfg, device)
+    opt_cfg = OptimizerConfig()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device).manual_seed(
+        TRAIN_SEED), opt_cfg)
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    params = state["params"]
+    n_params = sum(p.numel() for p in params.parameters())
+    t0 = time.perf_counter()
+    meta, tokens = synth_corpus(docs, doc_len=seq, vocab=cfg.vocab)
+    pipe = OreoDataPipeline(meta, tokens,
+                            mixture_recipe(meta, total_steps=steps + 1),
+                            batch_size=batch, seq_len=seq, alpha=ALPHA,
+                            device=device)
+    corpus_seconds = time.perf_counter() - t0
+    step_fn = build_train_step(model, opt_cfg)
+    batches = {}
+
+    def batch_at(i):
+        if i not in batches:
+            batches[i] = {k: torch.as_tensor(v, device=device)
+                          for k, v in next(pipe).items()}
+        return batches[i]
+
+    # The first step twice from one state: the same bits.
+    snapshot = [p.detach().clone() for p in params.parameters()]
+    _, first = step_fn(state, batch_at(0))
+    first = {k: v.clone() for k, v in first.items()}
+    after_first = [p.detach().clone() for p in params.parameters()]
+    with torch.no_grad():
+        for p, s in zip(params.parameters(), snapshot):
+            p.copy_(s)
+        for part in ("m", "v"):
+            for t in state["opt"][part].values():
+                t.zero_()
+        state["opt"]["step"].zero_()
+    del snapshot
+
+    reset_flash_counts()
+    pruning.scan_matrix.launches = 0
+    times, losses, norms = [], [], []
+    repeat_equal = None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch_at(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if i == 0:
+            repeat_equal = (
+                torch.equal(metrics["loss"], first["loss"])
+                and torch.equal(metrics["grad_norm"], first["grad_norm"])
+                and all(torch.equal(p, a) for p, a in
+                        zip(params.parameters(), after_first)))
+            del after_first
+    fwd, bwd, routes = flash_counts()
+    prunes = pruning.scan_matrix.launches
+    peak = torch.cuda.max_memory_allocated(device)
+    seconds = sum(times)
+    emit("train_full", cell=name, source=cfg.source, params=n_params,
+         dtype="bfloat16", batch=batch, seq=seq, steps=steps,
+         init_seconds=init_seconds, corpus_seconds=corpus_seconds,
+         step_seconds=times, s_per_step=seconds / steps,
+         s_per_step_after_first=sum(times[1:]) / max(steps - 1, 1),
+         tokens_per_s=batch * seq * steps / seconds,
+         first_loss=losses[0], last_loss=losses[-1], losses=losses,
+         grad_norms=norms, first_step_repeat_bitwise=repeat_equal,
+         peak_bytes=peak, pipeline_mean_scan_fraction=(
+             pipe.stats.mean_scan_fraction),
+         pipeline_reorgs=pipe.stats.reorgs,
+         pipeline_queries=pipe.stats.queries,
+         flash_launches=fwd, flash_launches_by_route=routes,
+         flash_launches_per_step=fwd / steps, flash_bwd_launches=bwd,
+         flash_bwd_launches_per_step=bwd / steps, pruning_launches=prunes,
+         card=card_line())
+    prof = profile_window(lambda: step_fn(state, batch_at(steps)),
+                          focus="flash_attention_bwd")
+    emit("train_full", cell=name, profile="one train step", **prof)
+    if not repeat_equal:
+        raise AssertionError(f"{name}: the first step run twice from one "
+                             f"state gave different bits")
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"{name}: non-finite loss or gradient norm")
+    if (fwd, bwd) != (2 * cfg.n_layers * steps, cfg.n_layers * steps):
+        raise AssertionError(f"{name}: {fwd} forward and {bwd} backward "
+                             f"flash launches in {steps} steps")
+    if prunes <= 0:
+        raise AssertionError(f"{name}: the pipeline launched no pruning "
+                             f"kernel")
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd,
+            "pruning": prunes}
+
+
+# ---------------------------------------------------------------------------
 # Z-order keys and the paper's evaluation baselines: the zorder kernel,
 # the six methods card against CPU, and the tpch-sf10-zorder cell
 # ---------------------------------------------------------------------------
@@ -3671,7 +4162,7 @@ def zorder_full_route(device, data, route) -> list:
 # ---------------------------------------------------------------------------
 
 ROUTER_CELL = "fleet16-sf1-oreo-router"
-ROUTER_QUERIES = 750          # fleet16's 1,500 queries per tenant, cut
+ROUTER_QUERIES = 500          # fleet16's 1,500 queries per tenant, cut
 ROUTER_EXTRA = 100            # queries per tenant after the migration
 ROUTER_SHARDS = 4
 #: benchmarks/bench_serving.py's OVERLOAD front end (queue 48, block).
@@ -4409,7 +4900,8 @@ def phase_router_full(device, rows: int = SF1_ROWS, tenants: int = 16,
 # ---------------------------------------------------------------------------
 
 FORECAST_CELL = "fleet16-sf1-forecast-cyclic_diurnal"
-FORECAST_QUERIES = 1_500      # BENCH_forecast.json's full config
+FORECAST_QUERIES = 750        # BENCH_forecast.json's 1,500, cut for the
+#                               whole script's time (the training phases)
 FORECAST_SCENARIO_SEED = 7    # benchmarks/bench_forecast.py: bench_cell seed
 FORECAST_WORKERS = 4          # forecast_parity's job processes
 FORECAST_LABELS = ("unlimited", "k1", "bucket")
@@ -5195,7 +5687,9 @@ def main(argv=None) -> int:
     kernels = {"pruning": phase_kernel(device), **phase_fleet_kernels(device),
                "move_score": phase_move_score_kernel(device),
                "flash_attention": phase_flash_kernel(device),
+               "flash_attention_bwd": phase_flash_bwd_kernel(device),
                "zorder": phase_zorder_kernel(device)}
+    release(device)
     if "parity" in phases:
         phase_parity(device)
     if "fleet_parity" in phases:
@@ -5250,6 +5744,12 @@ def main(argv=None) -> int:
     if "forecast_full" in phases:
         for arm, counts in phase_forecast_full(device).items():
             runs[f"{FORECAST_CELL}/{arm}"] = counts
+        release(device)
+    if "train_parity" in phases:
+        phase_train_parity(device)
+        release(device)
+    if "train_full" in phases:
+        runs[f"{TRAIN_ARCH}-train"] = cell_train(device)
         release(device)
     for name, summary in kernels.items():
         summary["launches"] = (sum(r.get(name, 0) for r in runs.values())

@@ -11,7 +11,9 @@ those arrays alone; ``repro_torch.core.layouts.Layout`` joins them into a
 layout.
 
 :func:`transformer_params` carries a transformer's parameter tree across
-the same way: nested dicts of numpy arrays in the reference's layout.
+the same way: nested dicts of numpy arrays in the reference's layout, and
+:func:`train_state` a whole train state (parameters, AdamW moments and
+step, and the error-feedback residual when present).
 """
 from __future__ import annotations
 
@@ -112,3 +114,30 @@ def transformer_params(tree, cfg, device: Device = None,
             w(lay["ln1"][i]), w(lay["ln2"][i])))
     return transformer.Transformer(w(tree["embed"]), blocks,
                                    w(tree["final_norm"]), w(tree["head"]))
+
+
+def train_state(tree, cfg, device: Device = None,
+                dtype: Optional[torch.dtype] = None) -> dict:
+    """The port's train state from the reference's, as nested dicts of
+    numpy arrays: ``params`` (cast to ``dtype`` unless it is None, with grad
+    on), ``opt`` {``m``, ``v``: parameter-shaped trees, ``step``} and, when
+    present, ``ef_residual``.  Moments and residual keep their dtypes and
+    are keyed by the parameters' names, as
+    :func:`repro_torch.train.optimizer.init_opt_state` keys them."""
+    dev = resolve_device(device)
+
+    def named(sub, dt=None):
+        return {n: p.detach() for n, p in
+                transformer_params(sub, cfg, dev, dt).named_parameters()}
+
+    params = transformer.trainable(
+        transformer_params(tree["params"], cfg, dev, dtype))
+    state = {"params": params,
+             "opt": {"m": named(tree["opt"]["m"]),
+                     "v": named(tree["opt"]["v"]),
+                     "step": torch.tensor(
+                         int(np.asarray(tree["opt"]["step"])),
+                         dtype=torch.int32, device=dev)}}
+    if "ef_residual" in tree:
+        state["ef_residual"] = named(tree["ef_residual"])
+    return state

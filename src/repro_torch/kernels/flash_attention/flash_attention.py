@@ -1,5 +1,5 @@
 """Causal (+ prefix-LM) flash attention: the CUDA kernel
-``csrc/flash_attention.cu``.
+``csrc/flash_attention.cu`` and its backward ``csrc/flash_attention_bwd.cu``.
 
 The Hopper counterpart of the TPU kernel ``flash_attention_pallas``,
 computing the function of ``repro.models.layers.flash_attention``: online
@@ -13,6 +13,13 @@ to the other.  The kernel has two routes, chosen before the launch from
 the operands alone (:func:`_route`): ``tensor_core`` (wgmma and TMA) for
 bfloat16 operands it can take, ``scalar`` for float32 and every other
 bfloat16 input.  A launch error raises; nothing retries the other route.
+
+:func:`flash_attention_bwd` launches the backward kernel (the gradient of
+the same function, which the TPU kernel never had) on CUDA tensors and runs
+the plain backward on CPU tensors.  :class:`FlashAttentionFn` joins the
+two for autograd: :func:`flash_attention` takes it only when grad is
+enabled and an input requires grad, and otherwise launches exactly as it
+does for serving.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"scalar": 0, "tensor_core": 1}
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
              + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -40,6 +49,16 @@ def _lib():
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_max_head_dim.argtypes = []
         lib.flash_attention_max_head_dim.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_lib():
+    lib = _backend.load("flash_attention_bwd")
+    if lib.flash_attention_bwd.argtypes is None:
+        lib.flash_attention_bwd.argtypes = _BWD_ARGTYPES
+        lib.flash_attention_bwd.restype = ctypes.c_int
+        lib.flash_attention_bwd_max_head_dim.argtypes = []
+        lib.flash_attention_bwd_max_head_dim.restype = ctypes.c_int
     return lib
 
 
@@ -71,6 +90,29 @@ def _check(q, k, v) -> None:
                          f"multiple of {k.shape[2]} kv heads")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def _check_operands(fn: str, operands, max_dh: int, q_offset: int,
+                    prefix_len: int) -> None:
+    """Raises on CUDA operands the kernels do not take: a dtype other than
+    float32 or bfloat16, a head dim that is not contiguous or exceeds
+    ``max_dh``, sizes past int32 positions.  ``operands`` are (name,
+    tensor) pairs, q first, then k."""
+    q, k = operands[0][1], operands[1][1]
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{fn}: the kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    b, t, hq, dh = q.shape
+    for name, x in operands:
+        if dh > 1 and x.numel() and x.stride(3) != 1:
+            raise ValueError(f"{fn}: {name} needs a unit stride along dh, "
+                             f"got strides {x.stride()}")
+    if dh > max_dh:
+        raise ValueError(f"{fn}: head dim {dh} exceeds the {max_dh} the "
+                         f"kernel takes")
+    if max(t, k.shape[1], b, hq, abs(q_offset), abs(prefix_len)) > \
+            _INT_MAX // 2:
+        raise ValueError(f"{fn}: sizes exceed the kernel's int32 positions")
 
 
 def _route(dtype: torch.dtype, dh: int, strides, ptrs) -> str:
@@ -113,33 +155,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int (a tensor is read back to the host) and is clamped to ``[0, S]``.
     ``route`` (``tensor_core`` or ``scalar``) overrides :func:`_route`'s
     choice; a route that cannot take the operands raises and launches
-    nothing.
+    nothing.  With grad enabled and an input that requires grad, the call
+    goes through :class:`FlashAttentionFn`, whose backward is
+    :func:`flash_attention_bwd`.
     """
     _check(q, k, v)
     if kv_valid_len is not None:
         kv_valid_len = int(kv_valid_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, prefix_len,
+                                      kv_valid_len, q_offset, route)
+    return _forward(q, k, v, causal, prefix_len, kv_valid_len, q_offset,
+                    route)
+
+
+def _forward(q, k, v, causal, prefix_len, kv_valid_len, q_offset, route):
+    """The forward launch (or, on CPU tensors, the plain version)."""
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal,
                                    prefix_len=prefix_len,
                                    kv_valid_len=kv_valid_len,
                                    q_offset=q_offset)
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention: the kernel takes float32 or "
-                        f"bfloat16, got {q.dtype}")
+    lib = _lib()
+    _check_operands("flash_attention", (("q", q), ("k", k), ("v", v)),
+                    lib.flash_attention_max_head_dim(), q_offset, prefix_len)
     b, t, hq, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if dh > 1 and x.numel() and x.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name} needs a unit stride "
-                             f"along dh, got strides {x.stride()}")
-    lib = _lib()
-    if dh > lib.flash_attention_max_head_dim():
-        raise ValueError(f"flash_attention: head dim {dh} exceeds the "
-                         f"{lib.flash_attention_max_head_dim()} the kernel "
-                         f"takes")
-    if max(t, s, b, hq, abs(q_offset), abs(prefix_len)) > _INT_MAX // 2:
-        raise ValueError("flash_attention: sizes exceed the kernel's int32 "
-                         "positions")
     kv_valid = s if kv_valid_len is None else min(max(kv_valid_len, 0), s)
     out = torch.empty((b, t, hq, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -169,3 +211,90 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: not count).
 flash_attention.launches = 0
 flash_attention.launches_by_route = {route: 0 for route in ROUTES}
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        causal: bool = True, prefix_len: int = 0,
+                        kv_valid_len: Optional[int] = None,
+                        q_offset: int = 0):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` at ``q, k, v``
+    given its output ``out`` and the output's cotangent ``dout`` (both
+    ``(B, T, Hq, dh)``), in the input dtype.
+
+    On the card one call launches ``csrc/flash_attention_bwd.cu`` (its dq
+    and dkdv kernels): float32 or bfloat16 operands with a unit stride
+    along ``dh``, ``dh`` at most 256; every launch gives the same bits.  On
+    CPU tensors it runs :func:`.ref.flash_attention_bwd`.
+    """
+    _check(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if not isinstance(t, torch.Tensor) or t.shape != q.shape:
+            raise ValueError(f"flash_attention_bwd: {name} must have q's "
+                             f"shape {tuple(q.shape)}")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"flash_attention_bwd: {name} is {t.dtype} on "
+                            f"{t.device}, q is {q.dtype} on {q.device}")
+    if kv_valid_len is not None:
+        kv_valid_len = int(kv_valid_len)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                       prefix_len=prefix_len,
+                                       kv_valid_len=kv_valid_len,
+                                       q_offset=q_offset)
+    lib = _bwd_lib()
+    _check_operands("flash_attention_bwd",
+                    (("q", q), ("k", k), ("v", v), ("out", out),
+                     ("dout", dout)),
+                    lib.flash_attention_bwd_max_head_dim(), q_offset,
+                    prefix_len)
+    b, t, hq, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    kv_valid = s if kv_valid_len is None else min(max(kv_valid_len, 0), s)
+    dq = torch.empty((b, t, hq, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    stats = torch.empty((3, b, hq, t), dtype=torch.float32, device=q.device)
+    strides = np.array([st for x in (q, k, v, out, dout, dq, dk, dv)
+                        for st in _strides(x)], dtype=np.int64)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(), strides.ctypes.data,
+            b, t, s, hq, hkv, dh, int(bool(causal)), int(prefix_len),
+            kv_valid, int(q_offset), float(np.float32(dh ** -0.5)),
+            _backend.stream_handle(q.device))
+    _backend.check_launch("flash_attention_bwd", err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+#: Backward launches since the last reset (CPU calls do not count).
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention for autograd: the forward launches the kernel (or
+    runs the plain version on CPU tensors) and saves ``q, k, v, out``; the
+    backward is :func:`flash_attention_bwd`.  Arguments after ``v`` are
+    :func:`flash_attention`'s."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, prefix_len, kv_valid_len, q_offset,
+                route):
+        out = _forward(q, k, v, causal, prefix_len, kv_valid_len, q_offset,
+                       route)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, prefix_len, kv_valid_len, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.mask)
+        return dq, dk, dv, None, None, None, None, None

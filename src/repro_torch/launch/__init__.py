@@ -1,3 +1,4 @@
 """Launch: process-parallel shard hosting for the routing plane
-(:mod:`repro_torch.launch.shard_host`; import submodules directly — this
-package stays import-light)."""
+(:mod:`repro_torch.launch.shard_host`) and the training driver
+(:mod:`repro_torch.launch.train`); import submodules directly -- this
+package stays import-light."""

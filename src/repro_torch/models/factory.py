@@ -4,8 +4,8 @@
 functions take the parameters explicitly, as ``repro.models.factory``'s
 do, so a serving loop reads the same in both packages.  The bundle runs on
 the card unless ``device="cpu"`` is given; without a card the default
-raises.  Only the dense family is ported; ``loss_fn`` belongs to the
-training slice and ``input_specs`` to the launch slice.
+raises.  Only the dense family is ported; ``input_specs`` belongs to the
+launch slice.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._backend import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import losses, transformer
 
 
 @dataclasses.dataclass
@@ -45,7 +45,9 @@ def build_model(cfg: ArchConfig,
         return mod.init_params(generator, cfg)
 
     def loss_fn(params, batch):
-        raise NotImplementedError("loss_fn comes with the training slice")
+        # Chunked CE: the (B, T, V) logits tensor is never materialized.
+        h = mod.hidden(params, cfg, batch)
+        return losses.chunked_lm_loss(h, params.head, batch["targets"])
 
     return ModelBundle(
         cfg=cfg, device=dev,

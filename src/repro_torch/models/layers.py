@@ -14,9 +14,10 @@ blocked version.  The reference's comment says its attention dispatches to
 the Pallas kernel, but ``attention_apply`` calls the jnp version directly;
 here every prefill attention on the card runs the kernel.  Decode
 attention (one query over the cache) stays plain PyTorch, as the reference
-computes it in jnp outside any kernel.  MoE, remat and sharding belong to
-later slices; the reference's sharding constraints are no-ops on one card
-and are dropped.
+computes it in jnp outside any kernel.  Training differentiates through
+the kernel's autograd Function (its backward is a kernel too); remat is the
+transformer's.  MoE and sharding belong to later slices; the reference's
+sharding constraints are no-ops on one card and are dropped.
 """
 from __future__ import annotations
 

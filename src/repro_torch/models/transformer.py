@@ -9,6 +9,11 @@ scans; here a Python loop walks them).  The cache is
 ``{"k", "v": (L, B, S, Hkv, dh), "index": int}``; a decode step writes the
 new k/v into it in place.  MoE, VLM (prefix-LM) and audio inputs raise
 ``NotImplementedError`` naming the slice that ports them.
+
+Parameters are created with ``requires_grad=False``, so serving builds no
+graph; :func:`trainable` turns grad on for training.  :func:`hidden` runs
+each block under :func:`torch.utils.checkpoint.checkpoint` when grad is
+enabled (the reference's default full remat per layer).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LATER_FAMILIES
 from repro_torch.models import layers as L
@@ -48,6 +54,13 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.head = nn.Parameter(head, requires_grad=False)
+
+
+def trainable(params: nn.Module) -> nn.Module:
+    """Turn grad on for every parameter of ``params``; returns it."""
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
 
 
 def init_layer(generator: torch.Generator, cfg) -> Block:
@@ -87,18 +100,32 @@ def _embed_input(params: Transformer, cfg, batch: Dict) -> torch.Tensor:
     return params.embed[tokens.long()]
 
 
-def hidden(params: Transformer, cfg, batch: Dict) -> torch.Tensor:
-    """Full-sequence forward up to the final norm; returns (B, T, d)."""
+def _block_out(block: Block, x: torch.Tensor, cfg,
+               positions: torch.Tensor) -> torch.Tensor:
+    return _layer_apply(block, x, cfg, positions)[0]
+
+
+def hidden(params: Transformer, cfg, batch: Dict,
+           remat: bool = True) -> torch.Tensor:
+    """Full-sequence forward up to the final norm; returns (B, T, d).  With
+    ``remat`` and grad enabled each block's activations are recomputed in
+    the backward, keeping only the blocks' inputs."""
     x = _embed_input(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    remat = remat and torch.is_grad_enabled()
     for block in params.layers:
-        x, _ = _layer_apply(block, x, cfg, positions)
+        if remat:
+            x = checkpoint(_block_out, block, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _block_out(block, x, cfg, positions)
     return L.rms_norm(x, params.final_norm)
 
 
-def forward(params: Transformer, cfg, batch: Dict) -> torch.Tensor:
+def forward(params: Transformer, cfg, batch: Dict,
+            remat: bool = True) -> torch.Tensor:
     """Full-sequence forward; returns logits (B, T, V)."""
-    return hidden(params, cfg, batch) @ params.head
+    return hidden(params, cfg, batch, remat) @ params.head
 
 
 def prefill(params: Transformer, cfg, batch: Dict,

@@ -8,6 +8,8 @@ port's dependencies are installed::
 
 Without a card every test here skips.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1676,3 +1678,68 @@ def test_forecast_engine_saved_mid_run_on_the_card_continues_identically(
     assert a.reorg_indices == b.reorg_indices
     assert np.array_equal(a.state_seq, b.state_seq)
     assert a.info == b.info and a.info["grown_admitted"] > 0
+
+
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max |g|
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,s,hq,hkv,dh,kw,pad", [
+    (2, 300, 300, 16, 8, 128, {}, 0),
+    (1, 130, 160, 6, 2, 192, {"prefix_len": 90, "q_offset": 30}, 2),
+])
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, t, s, hq,
+                                                  hkv, dh, kw, pad, dtype):
+    """The backward kernel against the plain backward, and the same bits
+    from a second launch."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fref
+    q, k, v = flash_operands(4, b, t, s, hq, hkv, dh, dtype, cuda_device,
+                             pad)
+    dout = flash_operands(5, b, t, t, hq, hkv, dh, dtype, cuda_device,
+                          pad)[0]
+    out = fa.flash_attention(q, k, v, **kw)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
+    want = fref.flash_attention_bwd(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 2
+    for x, y, w in zip(got, again, want):
+        assert x.dtype == dtype and x.shape == w.shape
+        assert torch.equal(x, y)
+        err = float((x.float() - w.float()).abs().max())
+        assert err <= FLASH_BWD_TOL[dtype] * float(w.float().abs().max())
+
+
+def test_smoke_train_step_on_the_card_equals_the_cpu(cuda_device):
+    """One float32 train step of qwen3's smoke config from the same
+    weights: loss card == CPU, through both flash kernels on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import build_model, transformer
+    from repro_torch.train import (OptimizerConfig, build_train_step,
+                                   init_opt_state)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("qwen3-1.7b", smoke=True)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 48), dtype=np.int32)
+    batch = {"tokens": toks, "targets": np.roll(toks, -1, 1)}
+    host = build_model(cfg, device="cpu")
+    weights = host.init_params(torch.Generator().manual_seed(0))
+    losses = []
+    for dev in (torch.device("cpu"), cuda_device):
+        model = build_model(cfg, device=dev)
+        params = transformer.trainable(copy.deepcopy(weights).to(
+            device=dev, dtype=torch.float32))
+        opt_cfg = OptimizerConfig()
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+        for _ in range(2):
+            state, metrics = build_train_step(model, opt_cfg)(state, batch)
+            losses.append(float(metrics["loss"]))
+        if dev.type == "cuda":
+            assert fa.flash_attention.launches - fwd == 2 * 2 * cfg.n_layers
+            assert fa.flash_attention_bwd.launches - bwd == 2 * cfg.n_layers
+    assert losses[0] == pytest.approx(losses[2], rel=1e-5)
+    assert losses[1] == pytest.approx(losses[3], rel=1e-5)

@@ -252,5 +252,13 @@ def test_decode_past_the_cache_raises_and_loss_is_for_training():
                          max_len=4)
     with pytest.raises(IndexError):
         m.decode_step(p, {"tokens": np.zeros((1, 1), np.int64)}, cache)
-    with pytest.raises(NotImplementedError, match="training"):
-        m.loss_fn(p, {})
+    # The training loss: repro's chunked CE on the same float32 weights.
+    jm, jp, m, p = models("qwen3-1.7b", "float32")
+    toks = tokens(cfg.vocab, (2, 24))
+    targets = np.roll(toks, -1, 1)
+    targets[:, -1] = -1
+    want = float(jm.loss_fn(jp, {"tokens": jnp.asarray(toks),
+                                 "targets": jnp.asarray(targets)}))
+    got = m.loss_fn(p, {"tokens": toks, "targets": targets})
+    assert got.dtype == torch.float32 and got.dim() == 0
+    assert abs(float(got) - want) <= 1e-5 * abs(want)
