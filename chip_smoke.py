@@ -58,11 +58,13 @@ Phases, each printing JSON lines:
    also timing PyTorch's ``scaled_dot_product_attention`` on the same
    tensors as ``library_ms`` (the port never calls it).  The flash
    backward kernel (``csrc/flash_attention_bwd.cu``) runs at qwen3-1.7b's
-   training shape (4, 2048, 16/8, 128) and the forward's edge shapes, in
-   bfloat16 and float32: each gradient within 2e-2 (bf16) or 1e-4
-   (float32) x its max |grad| of the plain backward, bitwise equal across
-   two launches, timed beside the plain backward and ``torch.autograd.grad``
-   of SDPA's output (``library_ms``).
+   training shape (4, 2048, 16/8, 128) and the forward's edge shapes,
+   both of its routes in bfloat16 (tensor cores, timed as ``ms``, and the
+   scalar one as ``earlier_design_ms``) and the scalar one in float32:
+   each gradient within 2e-2 (bf16) or 1e-4 (float32) x its max |grad| of
+   the plain backward, bitwise equal across two launches, timed beside
+   the plain backward and ``torch.autograd.grad`` of SDPA's output
+   (``library_ms``).
 3. ``parity``: the single-table loop at 20,000 rows x 8 columns and 1,500
    queries under OREO, Static, Greedy and Regret, on the card and on the
    CPU; the traces must be bitwise equal.
@@ -207,13 +209,15 @@ Phases, each printing JSON lines:
    from a numpy seed in both copies: the loss and every gradient of
    ``loss_fn`` on (2, 128) tokens (loss within 1e-5 relative, each
    gradient within 1e-4 x its max |g|), then 3 ``build_train_step``
-   steps whose losses agree within 1e-4; the card's steps launch the
-   forward kernel's scalar route and the backward kernel; (b) at the smoke
-   config in bf16 on the card, a ``FaultTolerantTrainer`` run of 20 steps
-   with a fault injected at step 13 ends bitwise equal to the clean run
-   (restarts 1 and 0); (c) ``OreoDataPipeline`` at tests/test_substrate.py's
-   config (20,000 documents, 1,500 queries): batches and stats bitwise
-   equal card and CPU.
+   steps whose losses agree within 1e-4 (the CPU side runs in a spawned
+   process on two threads from the start of the script, beside the card's
+   earlier phases); the card's steps launch both flash kernels' scalar
+   routes; (b) at the smoke config in bf16 on the card, a
+   ``FaultTolerantTrainer`` run of 20 steps with a fault injected at step
+   13 ends bitwise equal to the clean run (restarts 1 and 0), every
+   backward launch on the tensor-core route; (c) ``OreoDataPipeline`` at
+   tests/test_substrate.py's config (20,000 documents, 1,500 queries):
+   batches and stats bitwise equal card and CPU.
 20. ``train_full``: the ``qwen3-1.7b-train`` cell -- qwen3-1.7b at full
    width and depth in bf16, weights drawn on the card from a seeded
    generator, per-layer remat, the default ``OptimizerConfig``, 10 steps
@@ -222,8 +226,9 @@ Phases, each printing JSON lines:
    alpha 80; the first step run twice from one state must give the same
    bits; s per step, tokens/s, losses, peak memory, the pipeline's scan
    fraction and reorganizations, launches (forward 56 a step, backward
-   28, pruning), then one step under torch.profiler (the backward
-   kernel's share of device time, the idle share).
+   28, every one on the tensor-core route, pruning), then one step under
+   torch.profiler (the backward kernel's device ms and share of device
+   time, the idle share).
 
 Kernel launch counts are reset just before each main path and read just
 after it; every 50th (fleet) or 100th (single table, per-query scan or
@@ -235,7 +240,8 @@ flash launch of ``serve_full`` and the first and every 10th call of
 each 64-bit zorder entry (keys, route) in ``zorder_full``, against the
 plain version on the card.  The ``env`` line also lists the global loads
 and stores of every zorder kernel in the built SASS (``cuobjdump``).
-Then the kernels' summary line, the card line, and as the last line
+Then a ``timing`` line (each phase's wall seconds), the launches line,
+the kernels' summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device the script exits 2 before printing any
 result.
@@ -3092,6 +3098,8 @@ TRAIN_SEQ = 2048
 TRAIN_STEPS = 10
 TRAIN_DOCS = 20_000
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # x max |grad| a tensor
+FLASH_BWD_ROUTES = {"bfloat16": ("tensor_core", "scalar"),
+                    "float32": ("scalar",)}
 FLASH_BWD_SHAPES = [  # (name, B, T, S, Hq, Hkv, dh, kwargs, head_pad)
     ("qwen3-1.7b train", 4, 2048, 2048, 16, 8, 128, {}, 0),
     ("ragged", 2, 1000, 1000, 16, 8, 128, {}, 0),
@@ -3148,11 +3156,13 @@ def sdpa_backward_ms(q, k, v, dout, kw, reps: int):
 
 def phase_flash_bwd_kernel(device) -> dict:
     """flash_attention_bwd against its plain backward on the card over
-    FLASH_BWD_SHAPES in bfloat16 and float32, each tensor within
-    FLASH_BWD_TOL x its max |grad| and bitwise equal across two launches;
-    CUDA-event times of the kernel, the plain backward and SDPA's backward;
-    returns the kernel's summary at qwen3-1.7b's training shape in
-    bfloat16."""
+    FLASH_BWD_SHAPES, each route of FLASH_BWD_ROUTES (both in bfloat16,
+    the scalar one in float32), each tensor within FLASH_BWD_TOL x its max
+    |grad| and bitwise equal across two launches; CUDA-event times of each
+    route, the plain backward and SDPA's backward; returns the kernel's
+    summary at qwen3-1.7b's training shape in bfloat16: the tensor-core
+    route as ``ms``, the scalar route (the earlier design) on the same
+    tensors as ``earlier_design_ms``."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -3169,64 +3179,82 @@ def phase_flash_bwd_kernel(device) -> dict:
                                   pad)[0]
             out = fa.flash_attention(q, k, v, **kw)
             want = ref.flash_attention_bwd(q, k, v, out, dout, **kw)
-            got = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
-            again = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
-            torch.cuda.synchronize()
-            row = {"shape": name, "dtype": dname, "b": b, "t": t, "s": s,
-                   "hq": hq, "hkv": hkv, "dh": dh, **kw, "tolerance": tol,
-                   "bitwise_repeat": all(torch.equal(x, y)
-                                         for x, y in zip(got, again)),
-                   "finite": all(bool(torch.isfinite(x).all())
-                                 for x in got)}
-            ok = row["bitwise_repeat"] and row["finite"]
-            for gname, x, w in zip(("dq", "dk", "dv"), got, want):
-                err = float((x.float() - w.float()).abs().max())
-                scale = float(w.float().abs().max())
-                row[f"{gname}_max_abs_err"], row[f"{gname}_max"] = err, scale
-                ok = ok and (err <= tol * scale or err == 0.0)
-                max_err = max(max_err, err)
-            if kw.get("kv_valid_len") == 0:
-                ok = ok and not any(bool(x.float().abs().max()) for x in got)
-            if not ok:
-                emit("kernel", kernel="flash_attention_bwd", **row)
-                raise AssertionError(f"flash_attention_bwd disagrees with "
-                                     f"its plain backward (or with itself) "
-                                     f"at {name} {dname}")
             big = t * s >= 1_000_000
-            row["ms"] = cuda_time_ms(
-                lambda: fa.flash_attention_bwd(q, k, v, out, dout, **kw),
-                10 if big else 50)
-            row["plain_ms"] = cuda_time_ms(
+            ms, rows = {}, []
+            for route in FLASH_BWD_ROUTES[dname]:
+                got = fa.flash_attention_bwd(q, k, v, out, dout, route=route,
+                                             **kw)
+                again = fa.flash_attention_bwd(q, k, v, out, dout,
+                                               route=route, **kw)
+                torch.cuda.synchronize()
+                row = {"shape": name, "dtype": dname, "route": route,
+                       "b": b, "t": t, "s": s, "hq": hq, "hkv": hkv,
+                       "dh": dh, **kw, "tolerance": tol,
+                       "bitwise_repeat": all(torch.equal(x, y)
+                                             for x, y in zip(got, again)),
+                       "finite": all(bool(torch.isfinite(x).all())
+                                     for x in got)}
+                ok = row["bitwise_repeat"] and row["finite"]
+                for gname, x, w in zip(("dq", "dk", "dv"), got, want):
+                    err = float((x.float() - w.float()).abs().max())
+                    scale = float(w.float().abs().max())
+                    row[f"{gname}_max_abs_err"] = err
+                    row[f"{gname}_max"] = scale
+                    ok = ok and (err <= tol * scale or err == 0.0)
+                    max_err = max(max_err, err)
+                if kw.get("kv_valid_len") == 0:
+                    ok = ok and not any(bool(x.float().abs().max())
+                                        for x in got)
+                if not ok:
+                    emit("kernel", kernel="flash_attention_bwd", **row)
+                    raise AssertionError(
+                        f"flash_attention_bwd's {route} route disagrees "
+                        f"with its plain backward (or with itself) at "
+                        f"{name} {dname}")
+                ms[route] = row["ms"] = cuda_time_ms(
+                    lambda: fa.flash_attention_bwd(q, k, v, out, dout,
+                                                   route=route, **kw),
+                    10 if big else 50)
+                rows.append(row)
+            main = rows[0]
+            main["plain_ms"] = cuda_time_ms(
                 lambda: ref.flash_attention_bwd(q, k, v, out, dout, **kw),
                 3 if big else 10)
-            row["library_ms"], lib_err = sdpa_backward_ms(
+            main["library_ms"], lib_err = sdpa_backward_ms(
                 q, k, v, dout, kw, 10 if big else 50)
             if lib_err:
-                row["library_error"] = lib_err
-            row.update(flash_bwd_bound(b, t, s, hq, hkv, dh, kw, dtype,
-                                       device))
-            emit("kernel", kernel="flash_attention_bwd", **row)
-            results.append(row)
+                main["library_error"] = lib_err
+            main.update(flash_bwd_bound(b, t, s, hq, hkv, dh, kw, dtype,
+                                        device))
+            if main["route"] != "scalar":
+                main["earlier_design_ms"] = ms["scalar"]
+            results.append(main)
+            for row in rows:
+                emit("kernel", kernel="flash_attention_bwd", **row)
     main = results[0]
     return {"name": "flash_attention.flash_attention_bwd", "route": "cuda",
+            "kernel_route": main["route"],
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/layers.py:122",
             "max_abs_err": max_err, "ms": main["ms"],
+            "earlier_design_ms": main["earlier_design_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
 
 
 def flash_counts() -> tuple:
+    """Forward and backward launches, and each one's launches by route."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     return (fa.flash_attention.launches, fa.flash_attention_bwd.launches,
-            dict(fa.flash_attention.launches_by_route))
+            dict(fa.flash_attention.launches_by_route),
+            dict(fa.flash_attention_bwd.launches_by_route))
 
 
 def reset_flash_counts() -> None:
     from repro_torch.kernels.flash_attention import flash_attention as fa
     fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
-    by_route = fa.flash_attention.launches_by_route
-    by_route.update(dict.fromkeys(by_route, 0))
+    for fn in (fa.flash_attention, fa.flash_attention_bwd):
+        fn.launches_by_route.update(dict.fromkeys(fn.launches_by_route, 0))
 
 
 def token_batches(vocab: int, n: int, shape, seed: int) -> list:
@@ -3242,11 +3270,14 @@ def token_batches(vocab: int, n: int, shape, seed: int) -> list:
     return out
 
 
-def train_parity_steps(device, layers: int, batch: int, seq: int,
-                       steps: int) -> None:
-    """(a): float32 (TF32 off), qwen3-1.7b at full width cut to ``layers``
-    layers, weights from a numpy seed in both copies; loss and every
-    gradient card == CPU, then ``steps`` train steps' losses."""
+TRAIN_PARITY = {"layers": 2, "batch": 2, "seq": 128, "steps": 3}   # (a)
+
+
+def train_parity_run(device, layers: int, batch: int, seq: int,
+                     steps: int) -> tuple:
+    """One side of (a) on ``device``: the loss, every gradient (float32,
+    on the host), ``steps`` train steps' losses, the seconds and the flash
+    counts."""
     import dataclasses
     import torch
     from repro_torch import convert
@@ -3260,27 +3291,72 @@ def train_parity_steps(device, layers: int, batch: int, seq: int,
     tree = numpy_transformer(cfg, TRAIN_SEED)
     batches = token_batches(cfg.vocab, steps, (batch, seq), TRAIN_SEED)
     opt_cfg = OptimizerConfig()
-    runs = {}
-    for kind, dev in (("card", device), ("cpu", torch.device("cpu"))):
-        model = build_model(cfg, dev)
-        params = transformer.trainable(
-            convert.transformer_params(tree, cfg, dev, torch.float32))
-        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
-        reset_flash_counts()
-        t0 = time.perf_counter()
-        names, leaves = zip(*params.named_parameters())
-        loss = model.loss_fn(params, batches[0])
-        grads = {n: g.float().cpu() for n, g in
-                 zip(names, torch.autograd.grad(loss, leaves))}
-        step = build_train_step(model, opt_cfg)
-        losses = []
-        for b in batches:
-            state, metrics = step(state, b)
-            losses.append(float(metrics["loss"]))
-        runs[kind] = (float(loss.detach()), grads, losses,
-                      time.perf_counter() - t0,
-                      flash_counts())
-        del model, params, state
+    model = build_model(cfg, device)
+    params = transformer.trainable(
+        convert.transformer_params(tree, cfg, device, torch.float32))
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    names, leaves = zip(*params.named_parameters())
+    loss = model.loss_fn(params, batches[0])
+    grads = {n: g.float().cpu() for n, g in
+             zip(names, torch.autograd.grad(loss, leaves))}
+    step = build_train_step(model, opt_cfg)
+    losses = []
+    for b in batches:
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+    return (float(loss.detach()), grads, losses, time.perf_counter() - t0,
+            flash_counts())
+
+
+def train_parity_cpu(path: str) -> tuple:
+    """(a)'s CPU side in a spawned process on two threads; the gradients
+    go to the torch.save file ``path`` (a pipe moves megabytes a second)."""
+    import torch
+    torch.set_num_threads(2)
+    out = train_parity_run(torch.device("cpu"), **TRAIN_PARITY)
+    torch.save(out[1], path)
+    return (out[0], None, *out[2:])
+
+
+def start_train_parity_cpu():
+    """Starts (a)'s CPU side now in a spawned process, so it overlaps the
+    card's earlier phases (it uses two of the host's cores and nothing on
+    the card); returns a function that waits for it and gives
+    train_parity_run's tuple.  The process exits once the job is done."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    import tempfile
+    import torch
+    fd, path = tempfile.mkstemp(suffix=".pt")
+    os.close(fd)
+    pool = cf.ProcessPoolExecutor(max_workers=1,
+                                  mp_context=mp.get_context("spawn"))
+    future = pool.submit(train_parity_cpu, path)
+    pool.shutdown(wait=False)
+
+    def result() -> tuple:
+        out = future.result()
+        grads = torch.load(path)
+        os.remove(path)
+        return (out[0], grads, *out[2:])
+    return result
+
+
+def train_parity_steps(device, layers: int, batch: int, seq: int,
+                       steps: int, host=None) -> None:
+    """(a): float32 (TF32 off), qwen3-1.7b at full width cut to ``layers``
+    layers, weights from a numpy seed in both copies; loss and every
+    gradient card == CPU, then ``steps`` train steps' losses.  ``host``
+    gives the CPU side's tuple (start_train_parity_cpu's function); by
+    default the CPU side runs here after the card's."""
+    import torch
+    runs = {"card": train_parity_run(device, layers, batch, seq, steps)}
+    release(device)
+    runs["cpu"] = host() if host is not None else train_parity_run(
+        torch.device("cpu"), layers, batch, seq, steps)
     card, host = runs["card"], runs["cpu"]
     worst = 0.0
     for n, g in host[1].items():
@@ -3292,7 +3368,7 @@ def train_parity_steps(device, layers: int, batch: int, seq: int,
         worst = max(worst, err / scale if scale else 0.0)
     loss_rel = abs(card[0] - host[0]) / abs(host[0])
     step_rel = max(abs(a - b) / abs(b) for a, b in zip(card[2], host[2]))
-    fwd, bwd, routes = card[4]
+    fwd, bwd, routes, bwd_routes = card[4]
     emit("train_parity", part="a", model=f"{TRAIN_ARCH} full width, "
          f"{layers} layers", dtype="float32", tokens=[batch, seq],
          steps=steps, loss_card=card[0], loss_cpu=host[0],
@@ -3300,14 +3376,16 @@ def train_parity_steps(device, layers: int, batch: int, seq: int,
          step_losses_card=card[2], step_losses_cpu=host[2],
          step_loss_rel_err=step_rel, card_seconds=card[3],
          cpu_seconds=host[3], flash_launches_card=fwd,
-         flash_launches_by_route=routes, flash_bwd_launches_card=bwd)
+         flash_launches_by_route=routes, flash_bwd_launches_card=bwd,
+         flash_bwd_launches_by_route=bwd_routes)
     if loss_rel > 1e-5 or step_rel > 1e-4:
         raise AssertionError(f"train_parity: losses differ card vs CPU "
                              f"(loss {loss_rel}, steps {step_rel})")
     if (fwd, bwd) != (2 * layers * (steps + 1), layers * (steps + 1)) or \
-            routes["scalar"] != fwd:
+            routes["scalar"] != fwd or bwd_routes["scalar"] != bwd:
         raise AssertionError(f"train_parity: {fwd} forward ({routes}) and "
-                             f"{bwd} backward flash launches on the card")
+                             f"{bwd} backward ({bwd_routes}) flash launches "
+                             f"on the card")
 
 
 def train_resume(device, steps: int = 20, fault_at: int = 13) -> None:
@@ -3348,7 +3426,7 @@ def train_resume(device, steps: int = 20, fault_at: int = 13) -> None:
                                       ckpt_dir=td + "/b", ckpt_every=5,
                                       fault_hook=fault_hook)
         final_faulty = faulty.run(steps)
-    fwd, bwd, routes = flash_counts()
+    fwd, bwd, routes, bwd_routes = flash_counts()
     pairs = list(zip(checkpoint._leaves(final_clean),
                      checkpoint._leaves(final_faulty)))
     equal = all(a[0] == b[0] and torch.equal(a[1], b[1]) for a, b in pairs)
@@ -3360,7 +3438,7 @@ def train_resume(device, steps: int = 20, fault_at: int = 13) -> None:
          leaves=len(pairs), bitwise_equal=equal, on_card=on_card,
          final_loss=clean.metrics_log[-1]["loss"],
          flash_launches_card=fwd, flash_launches_by_route=routes,
-         flash_bwd_launches_card=bwd)
+         flash_bwd_launches_card=bwd, flash_bwd_launches_by_route=bwd_routes)
     if (clean.restarts, faulty.restarts) != (0, 1):
         raise AssertionError(f"train_parity: restarts {clean.restarts} and "
                              f"{faulty.restarts}, one fault injected")
@@ -3369,9 +3447,11 @@ def train_resume(device, steps: int = 20, fault_at: int = 13) -> None:
                              "the clean one")
     # Each run trains `steps` steps, the faulty one replays 13 - 10 more.
     n = 2 * steps + fault_at - fault_at // 5 * 5
-    if (fwd, bwd) != (2 * cfg.n_layers * n, cfg.n_layers * n):
+    if (fwd, bwd) != (2 * cfg.n_layers * n, cfg.n_layers * n) or \
+            bwd_routes["tensor_core"] != bwd:
         raise AssertionError(f"train_parity: {fwd} forward and {bwd} "
-                             f"backward flash launches for {n} steps")
+                             f"backward ({bwd_routes}) flash launches for "
+                             f"{n} steps")
 
 
 def train_pipeline_parity(device, steps: int = 1500) -> None:
@@ -3412,12 +3492,12 @@ def train_pipeline_parity(device, steps: int = 1500) -> None:
                              "pruning kernel")
 
 
-def phase_train_parity(device, layers: int = 2, batch: int = 2,
-                       seq: int = 128, steps: int = 3) -> None:
-    """(a) float32 training card against CPU, (b) a fault-injected
-    FaultTolerantTrainer run bitwise equal to a clean one on the card, (c)
-    the OREO data pipeline card against CPU."""
-    train_parity_steps(device, layers, batch, seq, steps)
+def phase_train_parity(device, host=None) -> None:
+    """(a) float32 training card against CPU (``host``: see
+    train_parity_steps), (b) a fault-injected FaultTolerantTrainer run
+    bitwise equal to a clean one on the card, (c) the OREO data pipeline
+    card against CPU."""
+    train_parity_steps(device, **TRAIN_PARITY, host=host)
     release(device)
     train_resume(device)
     train_pipeline_parity(device)
@@ -3502,7 +3582,7 @@ def cell_train(device, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
                 and all(torch.equal(p, a) for p, a in
                         zip(params.parameters(), after_first)))
             del after_first
-    fwd, bwd, routes = flash_counts()
+    fwd, bwd, routes, bwd_routes = flash_counts()
     prunes = pruning.scan_matrix.launches
     peak = torch.cuda.max_memory_allocated(device)
     seconds = sum(times)
@@ -3520,6 +3600,7 @@ def cell_train(device, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
          pipeline_queries=pipe.stats.queries,
          flash_launches=fwd, flash_launches_by_route=routes,
          flash_launches_per_step=fwd / steps, flash_bwd_launches=bwd,
+         flash_bwd_launches_by_route=bwd_routes,
          flash_bwd_launches_per_step=bwd / steps, pruning_launches=prunes,
          card=card_line())
     prof = profile_window(lambda: step_fn(state, batch_at(steps)),
@@ -3530,9 +3611,11 @@ def cell_train(device, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
                              f"state gave different bits")
     if not all(map(math.isfinite, losses + norms)):
         raise AssertionError(f"{name}: non-finite loss or gradient norm")
-    if (fwd, bwd) != (2 * cfg.n_layers * steps, cfg.n_layers * steps):
+    if (fwd, bwd) != (2 * cfg.n_layers * steps, cfg.n_layers * steps) or \
+            bwd_routes["tensor_core"] != bwd:
         raise AssertionError(f"{name}: {fwd} forward and {bwd} backward "
-                             f"flash launches in {steps} steps")
+                             f"({bwd_routes}) flash launches in {steps} "
+                             f"steps")
     if prunes <= 0:
         raise AssertionError(f"{name}: the pipeline launched no pruning "
                              f"kernel")
@@ -5670,6 +5753,13 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
+    clock = [time.perf_counter()]
+    phase_seconds = {}
+
+    def done(name: str) -> None:
+        now = time.perf_counter()
+        phase_seconds[name] = now - clock[0]
+        clock[0] = now
     _backend.build()
     try:
         zorder_sass = sass_memory_ops(_backend.build_dir() / "libzorder.so")
@@ -5683,6 +5773,9 @@ def main(argv=None) -> int:
                     if "ptxas" in ln or "spill" in ln]
                 for k, v in _backend.build_logs.items()},
          zorder_sass=zorder_sass)
+    train_host = (start_train_parity_cpu() if "train_parity" in phases
+                  else None)
+    done("env")
 
     kernels = {"pruning": phase_kernel(device), **phase_fleet_kernels(device),
                "move_score": phase_move_score_kernel(device),
@@ -5690,28 +5783,37 @@ def main(argv=None) -> int:
                "flash_attention_bwd": phase_flash_bwd_kernel(device),
                "zorder": phase_zorder_kernel(device)}
     release(device)
+    done("kernel")
     if "parity" in phases:
         phase_parity(device)
+        done("parity")
     if "fleet_parity" in phases:
         phase_fleet_parity(device)
+        done("fleet_parity")
     if "reorg_parity" in phases:
         phase_reorg_parity(device)
+        done("reorg_parity")
     if "serve_parity" in phases:
         phase_serve_parity(device)
         release(device)
+        done("serve_parity")
     if "zorder_parity" in phases:
         phase_zorder_parity(device)
+        done("zorder_parity")
     if "ingest_parity" in phases:
         phase_ingest_parity(device)
         release(device)
+        done("ingest_parity")
     if "router_parity" in phases:
         phase_router_parity(device)
         release(device)
+        done("router_parity")
     sf10 = None
     if "forecast_parity" in phases:
         _, sf10 = phase_forecast_parity(device, meanwhile=(
             (lambda: sf10_inputs(device, args.queries))
             if phases & {"full", "zorder_full"} else None))
+        done("forecast_parity (and the tpch-sf10 table)")
     runs = {}
     if phases & {"full", "zorder_full"}:
         data, stream = sf10 or sf10_inputs(device, args.queries)
@@ -5720,40 +5822,52 @@ def main(argv=None) -> int:
             runs["tpch-sf10-oreo"] = {"pruning": phase_full(device, data,
                                                             stream)}
             release(device)
+            done("full")
         if "zorder_full" in phases:
             runs["tpch-sf10-zorder"] = cell_zorder(device, data, stream)
+            done("zorder_full")
         del data
         release(device)
     if "fleet_full" in phases:
         runs.update(phase_fleet_full(device))
+        done("fleet_full")
     if "reorg_full" in phases:
         for arm, counts in cell_reorg(device).items():
             runs[f"fleet16-sf1-oreo-incr-bucket/{arm}"] = counts
         release(device)
+        done("reorg_full")
     if "serve_full" in phases:
         runs[f"{SERVE_ARCH}-serve"] = {"flash_attention": cell_serve(device)}
         release(device)
+        done("serve_full")
     if "ingest_full" in phases:
         for arm, counts in phase_ingest_full(device).items():
             runs[f"{INGEST_CELL}/{arm}"] = counts
         release(device)
+        done("ingest_full")
     if "router_full" in phases:
         for arm, counts in phase_router_full(device).items():
             runs[f"{ROUTER_CELL}/{arm}"] = counts
         release(device)
+        done("router_full")
     if "forecast_full" in phases:
         for arm, counts in phase_forecast_full(device).items():
             runs[f"{FORECAST_CELL}/{arm}"] = counts
         release(device)
+        done("forecast_full")
     if "train_parity" in phases:
-        phase_train_parity(device)
+        phase_train_parity(device, host=train_host)
         release(device)
+        done("train_parity")
     if "train_full" in phases:
         runs[f"{TRAIN_ARCH}-train"] = cell_train(device)
         release(device)
+        done("train_full")
     for name, summary in kernels.items():
         summary["launches"] = (sum(r.get(name, 0) for r in runs.values())
                                if runs else None)
+    emit("timing", phase_seconds=phase_seconds,
+         total_seconds=sum(phase_seconds.values()))
     emit("launches", per_main_path=runs)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card_line(), flush=True)

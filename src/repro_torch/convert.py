@@ -13,11 +13,13 @@ layout.
 :func:`transformer_params` carries a transformer's parameter tree across
 the same way: nested dicts of numpy arrays in the reference's layout, and
 :func:`train_state` a whole train state (parameters, AdamW moments and
-step, and the error-feedback residual when present).
+step, and the error-feedback residual when present).  Both, and the
+checkpoint's on-disk format, place the port's parameter names through
+:func:`ref_path`.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -84,6 +86,44 @@ def _weight(a, device: torch.device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def ref_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """The reference's leaf path of the port's parameter ``name`` and the
+    index of its layer on that leaf's stacked axis 0 (None outside
+    ``layers``): ``layers.3.attn.wq`` is ``("layers", "attn", "wq")``, 3."""
+    parts = tuple(name.split("."))
+    if parts[0] == "layers":
+        return ("layers",) + parts[2:], int(parts[1])
+    return parts, None
+
+
+def ref_leaf(tree, name: str):
+    """The part of the reference's tree that the port's parameter ``name``
+    holds: a leaf, or one layer of a stacked leaf."""
+    path, layer = ref_path(name)
+    for key in path:
+        tree = tree[key]
+    return tree if layer is None else tree[layer]
+
+
+def ref_groups(names) -> Dict[Tuple[str, ...], List[str]]:
+    """The reference's leaf paths of the port's parameter ``names``, in
+    ``jax.tree.flatten``'s order (sorted), each with the names it holds:
+    one, or a stacked leaf's layers from 0 on."""
+    groups: Dict[Tuple[str, ...], list] = {}
+    for name in names:
+        path, layer = ref_path(name)
+        groups.setdefault(path, []).append((layer, name))
+    out = {}
+    for path in sorted(groups):
+        layers, members = zip(*sorted(groups[path],
+                                      key=lambda m: m[0] or 0))
+        if layers != (None,) and layers != tuple(range(len(layers))):
+            raise ValueError(f"convert: {'/'.join(path)} holds layers "
+                             f"{list(layers)}, not 0 .. n - 1")
+        out[path] = list(members)
+    return out
+
+
 def transformer_params(tree, cfg, device: Device = None,
                        dtype: Optional[torch.dtype] = None
                        ) -> transformer.Transformer:
@@ -98,22 +138,21 @@ def transformer_params(tree, cfg, device: Device = None,
     dev = resolve_device(device)
     transformer.check_family(cfg)
 
-    def w(a):
-        return _weight(a, dev, dtype)
+    def w(name):
+        return _weight(ref_leaf(tree, name), dev, dtype)
 
-    lay = tree["layers"]
-    attn, mlp = lay["attn"], lay["mlp"]
     blocks = []
     for i in range(cfg.n_layers):
-        norms = ((w(attn["q_norm"][i]), w(attn["k_norm"][i]))
-                 if cfg.qk_norm else (None, None))
+        at, ml = f"layers.{i}.attn.", f"layers.{i}.mlp."
+        norms = ((w(at + "q_norm"), w(at + "k_norm")) if cfg.qk_norm
+                 else (None, None))
         blocks.append(transformer.Block(
-            L.Attention(w(attn["wq"][i]), w(attn["wk"][i]), w(attn["wv"][i]),
-                        w(attn["wo"][i]), *norms),
-            L.MLP(**{name: w(leaf[i]) for name, leaf in mlp.items()}),
-            w(lay["ln1"][i]), w(lay["ln2"][i])))
-    return transformer.Transformer(w(tree["embed"]), blocks,
-                                   w(tree["final_norm"]), w(tree["head"]))
+            L.Attention(*(w(at + k) for k in ("wq", "wk", "wv", "wo")),
+                        *norms),
+            L.MLP(**{k: w(ml + k) for k in tree["layers"]["mlp"]}),
+            w(f"layers.{i}.ln1"), w(f"layers.{i}.ln2")))
+    return transformer.Transformer(w("embed"), blocks, w("final_norm"),
+                                   w("head"))
 
 
 def train_state(tree, cfg, device: Device = None,
@@ -125,13 +164,13 @@ def train_state(tree, cfg, device: Device = None,
     are keyed by the parameters' names, as
     :func:`repro_torch.train.optimizer.init_opt_state` keys them."""
     dev = resolve_device(device)
-
-    def named(sub, dt=None):
-        return {n: p.detach() for n, p in
-                transformer_params(sub, cfg, dev, dt).named_parameters()}
-
     params = transformer.trainable(
         transformer_params(tree["params"], cfg, dev, dtype))
+    names = [n for n, _ in params.named_parameters()]
+
+    def named(sub):
+        return {n: _weight(ref_leaf(sub, n), dev, None) for n in names}
+
     state = {"params": params,
              "opt": {"m": named(tree["opt"]["m"]),
                      "v": named(tree["opt"]["v"]),

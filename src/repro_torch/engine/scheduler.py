@@ -51,7 +51,7 @@ class ReorgScheduler(Protocol):
       one is still waiting.
     * :meth:`release` returns a granted unit once the swap has taken
       effect (or the target state was evicted and the swap skipped).
-      Under an *incremental* fleet (a later slice of the port) the
+      Under an *incremental* fleet (:mod:`repro_torch.engine.reorg`) the
       unit is instead held for the whole migration — from the step its
       moves begin until the step the target layout takes over — so
       e.g. :class:`KConcurrentScheduler` bounds concurrent migrations.
@@ -171,7 +171,7 @@ class TokenBucketScheduler(_StatsMixin):
     1/rate queries fleet-wide".
 
     With ``rows_per_token`` set, the bucket is denominated in *rows* for
-    incremental fleets (a later slice of the port): admission is free
+    incremental fleets (:mod:`repro_torch.engine.reorg`): admission is free
     (:meth:`try_acquire` always grants, so migrations *start* on their
     Δ-due step) and :meth:`grant_rows` meters how many rows may move per
     tick — one token buys ``rows_per_token`` rows, so the bucket models a

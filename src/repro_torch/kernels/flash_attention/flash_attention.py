@@ -16,7 +16,8 @@ bfloat16 input.  A launch error raises; nothing retries the other route.
 
 :func:`flash_attention_bwd` launches the backward kernel (the gradient of
 the same function, which the TPU kernel never had) on CUDA tensors and runs
-the plain backward on CPU tensors.  :class:`FlashAttentionFn` joins the
+the plain backward on CPU tensors.  It has the same two routes, chosen the
+same way from its eight operands.  :class:`FlashAttentionFn` joins the
 two for autograd: :func:`flash_attention` takes it only when grad is
 enabled and an input requires grad, and otherwise launches exactly as it
 does for serving.
@@ -37,7 +38,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"scalar": 0, "tensor_core": 1}
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
              + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
                  + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
 _INT_MAX = 2 ** 31 - 1
 
@@ -117,7 +118,7 @@ def _check_operands(fn: str, operands, max_dh: int, q_offset: int,
 
 def _route(dtype: torch.dtype, dh: int, strides, ptrs) -> str:
     """The route for operands of ``dtype`` and head dim ``dh`` with the
-    given element strides (batch, token and head of q, k, v and out) and
+    given element strides (batch, token and head of every operand) and
     base addresses: ``tensor_core`` takes bfloat16 with ``dh`` a multiple
     of 16 up to 256, 16-byte aligned bases and strides that are positive
     multiples of 8 elements (TMA's 16 bytes); everything else is
@@ -136,6 +137,14 @@ def _strides(x: torch.Tensor) -> list:
         return [8, 8, 8]
     return [st if n > 1 or (st > 0 and st % 8 == 0) else 8
             for n, st in zip(x.shape[:3], x.stride()[:3])]
+
+
+def _layout(operands) -> tuple:
+    """The operands' (batch, token, head) element strides, one after the
+    other as the kernels take them, and their base addresses."""
+    strides = np.array([st for x in operands for st in _strides(x)],
+                       dtype=np.int64)
+    return strides, tuple(x.data_ptr() for x in operands)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -186,9 +195,7 @@ def _forward(q, k, v, causal, prefix_len, kv_valid_len, q_offset, route):
     out = torch.empty((b, t, hq, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    strides = np.array([*_strides(q), *_strides(k), *_strides(v),
-                        *_strides(out)], dtype=np.int64)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    strides, ptrs = _layout((q, k, v, out))
     if route is None:
         route = _route(q.dtype, dh, strides.tolist(), ptrs)
     if route not in ROUTES:
@@ -217,15 +224,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor,
                         causal: bool = True, prefix_len: int = 0,
                         kv_valid_len: Optional[int] = None,
-                        q_offset: int = 0):
+                        q_offset: int = 0, route: Optional[str] = None):
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` at ``q, k, v``
     given its output ``out`` and the output's cotangent ``dout`` (both
     ``(B, T, Hq, dh)``), in the input dtype.
 
     On the card one call launches ``csrc/flash_attention_bwd.cu`` (its dq
     and dkdv kernels): float32 or bfloat16 operands with a unit stride
-    along ``dh``, ``dh`` at most 256; every launch gives the same bits.  On
-    CPU tensors it runs :func:`.ref.flash_attention_bwd`.
+    along ``dh``, ``dh`` at most 256; every launch gives the same bits.
+    :func:`_route` picks the route from the operands, the gradients' too;
+    ``route`` forces one, and a route that cannot take the operands raises
+    and launches nothing.  On CPU tensors it runs
+    :func:`.ref.flash_attention_bwd`.
     """
     _check(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
@@ -256,24 +266,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    stats = torch.empty((3, b, hq, t), dtype=torch.float32, device=q.device)
-    strides = np.array([st for x in (q, k, v, out, dout, dq, dk, dv)
-                        for st in _strides(x)], dtype=np.int64)
+    strides, ptrs = _layout((q, k, v, out, dout, dq, dk, dv))
+    if route is None:
+        route = _route(q.dtype, dh, strides.tolist(), ptrs)
+    if route not in ROUTES:
+        raise ValueError(f"flash_attention_bwd: route {route!r} is not one "
+                         f"of {sorted(ROUTES)}")
+    # Scratch for the rows' statistics: 3 x B x Hq x T (rounded up to 64
+    # rows) floats holds either route's.
+    stats = torch.empty(3 * b * hq * -(-t // 64) * 64, dtype=torch.float32,
+                        device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), strides.ctypes.data,
-            b, t, s, hq, hkv, dh, int(bool(causal)), int(prefix_len),
-            kv_valid, int(q_offset), float(np.float32(dh ** -0.5)),
-            _backend.stream_handle(q.device))
-    _backend.check_launch("flash_attention_bwd", err)
+            ROUTES[route], _DTYPES[q.dtype], *ptrs, stats.data_ptr(),
+            strides.ctypes.data, b, t, s, hq, hkv, dh, int(bool(causal)),
+            int(prefix_len), kv_valid, int(q_offset),
+            float(np.float32(dh ** -0.5)), _backend.stream_handle(q.device))
+    _backend.check_launch(f"flash_attention_bwd ({route} route)", err)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[route] += 1
     return dq, dk, dv
 
 
-#: Backward launches since the last reset (CPU calls do not count).
+#: Backward launches since the last reset, in all and by route (CPU calls
+#: do not count).
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = {route: 0 for route in ROUTES}
 
 
 class FlashAttentionFn(torch.autograd.Function):

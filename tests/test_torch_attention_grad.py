@@ -11,7 +11,9 @@ GQA groups of 1, 2 and 4, and ragged T, in float32 and bfloat16 (against
 ``repro`` in bfloat16 at one case).  ``repro``'s gradients are computed in
 one jitted function for every case: one compile instead of one per case.
 ``FlashAttentionFn`` on CPU tensors must give the plain gradients and count
-no launch.
+no launch.  The backward's route (tensor cores or scalar) is chosen from
+its eight operands' dtype, head dim, strides and base addresses, as the
+forward's is; on CPU tensors the wrapper counts nothing on either route.
 
 Tolerances, each against the largest |gradient| of its tensor: float32
 ``1e-5`` (the same sums in another order); bfloat16 ``2e-2`` (``repro``'s
@@ -152,3 +154,64 @@ def test_function_on_cpu_gives_the_plain_gradients_and_counts_nothing(
     assert fa.flash_attention(q, k, v, **kw).grad_fn is None
     assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
         == (fwd, bwd)
+
+
+def strided(b, n, h, dh, dtype, pad=0, offset=0, batch_stride=None):
+    """A (b, n, h, dh) view of a tensor with ``pad`` more heads, starting
+    ``offset`` elements into its storage; ``batch_stride`` 0 broadcasts one
+    batch row, as an expanded cotangent does."""
+    rows = 1 if batch_stride == 0 else b
+    base = torch.zeros(rows * n * (h + pad) * dh + offset, dtype=dtype)
+    x = base[offset:].view(rows, n, h + pad, dh)[:, :, :h]
+    return x.expand(b, n, h, dh) if batch_stride == 0 else x
+
+
+# (dtype, dh, strided() kwargs by operand, "all" for q, k, v, out and
+# dout, route); dq, dk and dv are new tensors, as the wrapper makes them.
+BWD_ROUTE_CASES = {
+    "bf16 dh 16": (torch.bfloat16, 16, {}, "tensor_core"),
+    "bf16 dh 24": (torch.bfloat16, 24, {}, "scalar"),
+    "bf16 dh 128": (torch.bfloat16, 128, {}, "tensor_core"),
+    "bf16 dh 256": (torch.bfloat16, 256, {}, "tensor_core"),
+    "bf16 dh 272": (torch.bfloat16, 272, {}, "scalar"),
+    "f32 dh 128": (torch.float32, 128, {}, "scalar"),
+    "bf16 head-strided dh 80": (torch.bfloat16, 80, {"all": {"pad": 3}},
+                                "tensor_core"),
+    "bf16 head-strided dh 192": (torch.bfloat16, 192, {"all": {"pad": 2}},
+                                 "tensor_core"),
+    "bf16 q 2 bytes off": (torch.bfloat16, 128, {"q": {"offset": 1}},
+                           "scalar"),
+    "bf16 out 16 bytes off": (torch.bfloat16, 128, {"out": {"offset": 8}},
+                              "tensor_core"),
+    "bf16 dout 2 bytes off": (torch.bfloat16, 128, {"dout": {"offset": 1}},
+                              "scalar"),
+    "bf16 dout 2 bytes off, dh 64": (torch.bfloat16, 64,
+                                     {"dout": {"offset": 1}}, "scalar"),
+    "bf16 dout broadcast over the batch": (
+        torch.bfloat16, 128, {"dout": {"batch_stride": 0}}, "scalar"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_ROUTE_CASES))
+def test_backward_route_is_chosen_from_the_operands(case):
+    """The backward's route, chosen from dtype, dh, and the strides and
+    base addresses of all eight operands (the gradients too) as the
+    wrapper chooses it before a launch; on these CPU tensors the wrapper
+    runs the plain backward and counts no launch."""
+    dtype, dh, kw, want = BWD_ROUTE_CASES[case]
+
+    def make(name, h):
+        return strided(2, 9, h, dh, dtype, **kw.get(name, kw.get("all", {})))
+    q, k, v, out, dout = (make(n, h) for n, h in (
+        ("q", 4), ("k", 2), ("v", 2), ("out", 4), ("dout", 4)))
+    grads = (torch.empty(q.shape, dtype=dtype),
+             torch.empty(k.shape, dtype=dtype),
+             torch.empty(k.shape, dtype=dtype))
+    strides, ptrs = fa._layout((q, k, v, out, dout, *grads))
+    assert fa._route(dtype, dh, strides.tolist(), ptrs) == want
+    before = (fa.flash_attention_bwd.launches,
+              dict(fa.flash_attention_bwd.launches_by_route))
+    got = fa.flash_attention_bwd(q, k, v, out, dout)
+    assert [g.shape for g in got] == [x.shape for x in (q, k, v)]
+    assert (fa.flash_attention_bwd.launches,
+            dict(fa.flash_attention_bwd.launches_by_route)) == before

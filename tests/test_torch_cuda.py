@@ -1683,15 +1683,20 @@ def test_forecast_engine_saved_mid_run_on_the_card_continues_identically(
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max |g|
 
 
+@pytest.mark.parametrize("route", ["tensor_core", "scalar"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,s,hq,hkv,dh,kw,pad", [
     (2, 300, 300, 16, 8, 128, {}, 0),
     (1, 130, 160, 6, 2, 192, {"prefix_len": 90, "q_offset": 30}, 2),
+    (1, 200, 200, 8, 1, 256, {}, 0),
+    (1, 300, 300, 4, 2, 128, {"prefix_len": 100}, 0),
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, t, s, hq,
-                                                  hkv, dh, kw, pad, dtype):
-    """The backward kernel against the plain backward, and the same bits
-    from a second launch."""
+                                                  hkv, dh, kw, pad, dtype,
+                                                  route):
+    """The backward kernel's route against the plain backward, and the
+    same bits from a second launch; the tensor-core route refuses float32
+    and launches nothing."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fref
     q, k, v = flash_operands(4, b, t, s, hq, hkv, dh, dtype, cuda_device,
@@ -1699,12 +1704,17 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, t, s, hq,
     dout = flash_operands(5, b, t, t, hq, hkv, dh, dtype, cuda_device,
                           pad)[0]
     out = fa.flash_attention(q, k, v, **kw)
-    before = fa.flash_attention_bwd.launches
-    got = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
-    again = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
+    before = fa.flash_attention_bwd.launches_by_route[route]
+    if route == "tensor_core" and dtype == torch.float32:
+        with pytest.raises(RuntimeError, match="tensor_core"):
+            fa.flash_attention_bwd(q, k, v, out, dout, route=route, **kw)
+        assert fa.flash_attention_bwd.launches_by_route[route] == before
+        return
+    got = fa.flash_attention_bwd(q, k, v, out, dout, route=route, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, route=route, **kw)
     want = fref.flash_attention_bwd(q, k, v, out, dout, **kw)
     torch.cuda.synchronize()
-    assert fa.flash_attention_bwd.launches == before + 2
+    assert fa.flash_attention_bwd.launches_by_route[route] == before + 2
     for x, y, w in zip(got, again, want):
         assert x.dtype == dtype and x.shape == w.shape
         assert torch.equal(x, y)

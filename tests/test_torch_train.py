@@ -14,7 +14,9 @@ update is about ``lr * sign(g)``, so a gradient within rounding of 0 would
 flip by ``2 lr`` on either side; ``eps`` makes the update continuous there.
 ``schedule`` is held within ``1e-7`` relative (float32 ``cos`` of two
 libraries); ``ef_int8_roundtrip``, the pipeline's batches and
-``PipelineStats`` must be equal bit for bit.
+``PipelineStats`` must be equal bit for bit.  Checkpoints cross packages
+bit for bit: each package restores the other's, and the port's leaf files
+are byte for byte ``repro``'s.
 """
 import copy
 import dataclasses
@@ -32,6 +34,7 @@ from repro.configs import get_arch as jget_arch
 from repro.data import pipeline as jpipe
 from repro.launch import train as jlaunch
 from repro.models import build_model as jbuild_model
+from repro.train import checkpoint as jcheckpoint
 from repro.train import compression as jcompression
 from repro.train import optimizer as jopt
 from repro.train import train_loop as jloop
@@ -444,6 +447,111 @@ def test_adamw_update_equals_the_reference(reference):
         for n in want:
             np.testing.assert_allclose(got[n], want[n], rtol=1e-6,
                                        atol=1e-9, err_msg=n)
+
+
+@pytest.fixture(scope="module")
+def reference_state():
+    """repro's train state at the smoke config with the EF residual, every
+    leaf redrawn from a numpy seed (so a misplaced leaf or layer shows) and
+    step 7, as numpy arrays."""
+    jm = jbuild_model(jget_arch(ARCH, smoke=True))
+    state = jloop.init_train_state(jm, jax.random.PRNGKey(0),
+                                   jopt.OptimizerConfig(),
+                                   jloop.TrainOptions(compress_grads=True))
+    rng = np.random.default_rng(8)
+
+    def redraw(a):
+        a = np.asarray(a)
+        if a.dtype == np.int32:
+            return np.asarray(7, dtype=np.int32)
+        return rng.standard_normal(a.shape, dtype=np.float32).astype(a.dtype)
+    return jax.tree.map(redraw, state)
+
+
+def without_ef(tree, ef):
+    return tree if ef else {k: v for k, v in tree.items()
+                            if k != "ef_residual"}
+
+
+def bits(a):
+    a = np.asarray(a)
+    return a.view(f"u{a.dtype.itemsize}")
+
+
+@pytest.mark.parametrize("ef", [False, True], ids=["plain", "ef_residual"])
+def test_checkpoint_saved_by_the_reference_restores_in_the_port(
+        reference_state, ef, tmp_path):
+    """repro's checkpoint restored into a zeroed port state equals
+    convert.train_state of the saved state, bit for bit, with the same
+    dtypes, devices and requires_grad."""
+    tree = without_ef(reference_state, ef)
+    jcheckpoint.save(tree, str(tmp_path), step=3)
+    cfg = get_arch(ARCH, smoke=True)
+    like = convert.train_state(jax.tree.map(np.zeros_like, tree), cfg,
+                               device="cpu")
+    got = checkpoint.restore(str(tmp_path), 3, like)
+    want = convert.train_state(tree, cfg, device="cpu")
+    pairs = list(zip(checkpoint._leaves(want), checkpoint._leaves(got)))
+    assert len(pairs) == len(checkpoint._leaves(like))
+    for (na, a), (nb, b) in pairs:
+        assert na == nb and a.dtype == b.dtype and a.device == b.device
+        assert a.requires_grad == b.requires_grad
+        assert torch.equal(a.detach(), b.detach()), na
+    assert ("ef_residual" in got) == ef
+
+
+@pytest.mark.parametrize("ef", [False, True], ids=["plain", "ef_residual"])
+def test_checkpoint_saved_by_the_port_restores_in_the_reference(
+        reference_state, ef, tmp_path):
+    """The port's checkpoint of convert.train_state(tree) has repro's
+    leaves byte for byte and manifest fields, and repro's restore gives
+    the tree back bit for bit."""
+    tree = without_ef(reference_state, ef)
+    cfg = get_arch(ARCH, smoke=True)
+    checkpoint.save(convert.train_state(tree, cfg, device="cpu"),
+                    str(tmp_path / "port"), step=3)
+    jcheckpoint.save(tree, str(tmp_path / "ref"), step=3)
+    port, ref = tmp_path / "port" / "step_3", tmp_path / "ref" / "step_3"
+    with open(port / "manifest.json") as f:
+        manifest = json.load(f)
+    with open(ref / "manifest.json") as f:
+        want = json.load(f)
+    for key in ("step", "num_leaves", "dtypes", "shapes"):
+        assert manifest[key] == want[key], key
+    paths = ["/".join(map(str, (k.key for k in path)))
+             for path, _ in jax.tree_util.tree_flatten_with_path(tree)[0]]
+    assert manifest["treedef"] == paths
+    assert sorted(os.listdir(port)) == sorted(os.listdir(ref))
+    for i in range(want["num_leaves"]):
+        assert (port / f"leaf_{i}.npy").read_bytes() == \
+            (ref / f"leaf_{i}.npy").read_bytes(), paths[i]
+    got = jcheckpoint.restore(str(tmp_path / "port"), 3,
+                              jax.tree.map(np.zeros_like, tree))
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(tree)):
+        assert np.asarray(a).dtype == b.dtype
+        np.testing.assert_array_equal(bits(a), bits(b))
+
+
+def test_checkpoint_in_the_earlier_per_layer_format_is_refused(
+        tiny_setup, tmp_path):
+    """A checkpoint written one leaf a layer, in _leaves' order, as the port
+    wrote them before it took repro's format, raises ValueError."""
+    state = tiny_setup[3]()
+    step_dir = tmp_path / "step_1"
+    step_dir.mkdir()
+    named = checkpoint._leaves(state)
+    for i, (_, t) in enumerate(named):
+        t = t.detach()
+        arr = (t.view(torch.int16).numpy().view(np.uint16)
+               if t.dtype == torch.bfloat16 else t.numpy())
+        np.save(step_dir / f"leaf_{i}.npy", arr)
+    with open(step_dir / "manifest.json", "w") as f:
+        json.dump({"step": 1, "num_leaves": len(named),
+                   "treedef": [n for n, _ in named],
+                   "dtypes": [str(t.dtype).split(".")[1] for _, t in named],
+                   "shapes": [list(t.shape) for _, t in named]}, f)
+    with pytest.raises(ValueError, match="per-layer"):
+        checkpoint.restore(str(tmp_path), 1, state)
 
 
 def test_pipeline_equals_the_reference_bitwise(pipelines):
