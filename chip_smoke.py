@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases router_parity,router_full
     python3 chip_smoke.py --phases forecast_parity,forecast_full
     python3 chip_smoke.py --phases train_parity,train_full
+    python3 chip_smoke.py --phases family_parity,family_full
 
 Phases, each printing JSON lines:
 
@@ -52,14 +53,16 @@ Phases, each printing JSON lines:
    atol = rtol = 2e-2 in bfloat16 and 1e-5 in float32 (qwen3-1.7b's
    prefill, ragged, smoke, non-causal with ``kv_valid_len``,
    ``prefix_len`` 96 and 200, ``q_offset`` 64, ``kv_valid_len`` 0, head
-   dims 256 and 192, 32 query heads over 4),
-   both of its routes in bfloat16 (tensor cores, timed as ``ms``, and the
-   scalar one as ``earlier_design_ms``) and the scalar one in float32,
-   also timing PyTorch's ``scaled_dot_product_attention`` on the same
-   tensors as ``library_ms`` (the port never calls it).  The flash
-   backward kernel (``csrc/flash_attention_bwd.cu``) runs at qwen3-1.7b's
-   training shape (4, 2048, 16/8, 128) and the forward's edge shapes,
-   both of its routes in bfloat16 (tensor cores, timed as ``ms``, and the
+   dims 256 and 192, 32 query heads over 4, paligemma-3b's prefill (4,
+   2048, 8/1, 256, ``prefix_len`` 256) and musicgen-large's (4, 1024,
+   32/32, 64)), both of its routes in bfloat16 (tensor cores, timed as
+   ``ms``, and the scalar one as ``earlier_design_ms``) and the scalar
+   one in float32, also timing PyTorch's ``scaled_dot_product_attention``
+   on the same tensors as ``library_ms`` (the port never calls it).  The
+   flash backward kernel (``csrc/flash_attention_bwd.cu``) runs at
+   qwen3-1.7b's training shape (4, 2048, 16/8, 128), paligemma-3b's (2,
+   512, 8/1, 256, ``prefix_len`` 256) and the forward's edge shapes, both
+   of its routes in bfloat16 (tensor cores, timed as ``ms``, and the
    scalar one as ``earlier_design_ms``) and the scalar one in float32:
    each gradient within 2e-2 (bf16) or 1e-4 (float32) x its max |grad| of
    the plain backward, bitwise equal across two launches, timed beside
@@ -125,11 +128,13 @@ Phases, each printing JSON lines:
    alone, keys only on a column-major copy) beside its bound and the
    sector floor of its key columns.
 13. ``ingest_parity``: the streaming ingest plane, card against
-   ``BENCH_ingest.json`` and the CPU: (a) its five scenarios x three
-   compaction arms (never, always, debt) with ``FleetEngine.run`` at its
-   full config (4 tenants of 8,000 x 8, 1,000 queries, alpha 4) and its
-   smoke config, every deterministic field and cost ratio equal to the
-   file, rounded as the benchmark rounds; (b) at the smoke config,
+   ``BENCH_ingest.json`` and the CPU: (a) three compaction arms (never,
+   always, debt) with ``FleetEngine.run`` at its full config (4 tenants of
+   8,000 x 8, 1,000 queries, alpha 4) under ``INGEST_FULL_SCENARIOS``
+   (mixed_rw and trickle; the other three are cut for the script's time)
+   and at its smoke config under all five scenarios, every deterministic
+   field and cost ratio equal to the file, rounded as the benchmark
+   rounds; (b) at the smoke config,
    ``run_batched`` on both lanes and the unbounded incremental fleet on
    both planner lanes equal to ``run`` for trickle, mixed_rw and
    bulk_load (every migration closes on alpha at once); (c) the smoke
@@ -178,7 +183,9 @@ Phases, each printing JSON lines:
    equal to the file and every trace and ``info()`` card == CPU; (b) from
    its full section (4 tenants of 20,000 x 8, 1,500 queries, alpha 20),
    the rows with pre-positions (gradual_drift and cyclic_diurnal, every
-   scheduler) and the unlimited row of the other eight scenarios, every
+   scheduler) and the unlimited row of ``FORECAST_FULL_UNLIMITED``
+   (sudden_shift, flash_crowd, template_churn; the five ingest scenarios'
+   rows are cut for the script's time, their smoke rows stay), every
    deterministic field equal; (c) the churn fleet of
    tests/test_forecast_churn.py (ForecastPolicy growing and retiring
    qd-tree states eagerly), five scenarios x three schedulers:
@@ -229,6 +236,32 @@ Phases, each printing JSON lines:
    28, every one on the tensor-core route, pruning), then one step under
    torch.profiler (the backward kernel's device ms and share of device
    time, the idle share).
+21. ``family_parity``: the VLM, audio and MoE families, card against CPU
+   in float32 (TF32 off): paligemma-3b, musicgen-large and
+   moonshot-v1-16b-a3b at full width cut to 2 layers, weights from the
+   port's init on a CPU generator in both copies (the CPU side runs in a
+   spawned two-thread process from the end of ``forecast_parity`` on, and
+   a thread here draws the card's copy); a prefill (paligemma 256 patch
+   embeddings and 32 tokens, musicgen 64 frames, moonshot 64 tokens; 2
+   rows) and 8 greedy decode steps (musicgen fed seeded frames): tokens
+   (codes) equal, logits within 1e-3 x max |logit|, the MoE's expert
+   choices and kept masks equal at every layer and call; paligemma's loss
+   and every gradient at (2, 512) (256 patch embeddings and 256 tokens)
+   within ``train_parity`` (a)'s limits, which runs the backward's prefix
+   path at dh 256 with one KV head, then a bf16 step of the same weights
+   on the tensor-core routes; each family smoke config's float32 train
+   step (loss, gradient norm, parameters).
+22. ``family_full``: three cells at full width and depth in bf16, weights
+   drawn on the card from a seeded generator: ``paligemma-3b-serve`` (4
+   requests of 256 seeded patch embeddings and 1,792 tokens, 32 greedy
+   tokens), ``musicgen-large-serve`` (4 requests of 1,024 frame
+   embeddings, 64 decode steps fed seeded frames) and
+   ``moonshot-v1-16b-a3b-serve`` (``serve_full``'s slot loop: 4 slots, 8
+   requests of 2,048 tokens, 32 new tokens, with the tokens its capacity
+   drops per layer at prefill and decode); prefill tokens/s, seconds per
+   output token, peak memory, flash launches by route (all on the tensor
+   cores, the first and every 10th held against the plain version), and
+   one profiled prefill's idle share.
 
 Kernel launch counts are reset just before each main path and read just
 after it; every 50th (fleet) or 100th (single table, per-query scan or
@@ -236,7 +269,8 @@ consumed row of a block scan; any pruning call in ``forecast_full``)
 scoring call, and
 every 50th planning call, of a main path is checked against the plain
 version on CPU copies of the same plane, and the first and every 10th
-flash launch of ``serve_full`` and the first and every 10th call of
+flash launch of ``serve_full`` and ``family_full`` and the first and
+every 10th call of
 each 64-bit zorder entry (keys, route) in ``zorder_full``, against the
 plain version on the card.  The ``env`` line also lists the global loads
 and stores of every zorder kernel in the built SASS (``cuobjdump``).
@@ -277,7 +311,8 @@ PHASES = ("kernel", "parity", "fleet_parity", "full", "fleet_full",
           "reorg_parity", "reorg_full", "serve_parity", "serve_full",
           "zorder_parity", "zorder_full", "ingest_parity", "ingest_full",
           "router_parity", "router_full", "forecast_parity",
-          "forecast_full", "train_parity", "train_full")
+          "forecast_full", "train_parity", "train_full", "family_parity",
+          "family_full")
 
 
 def emit(phase: str, **fields) -> None:
@@ -2137,6 +2172,9 @@ INGEST_FIELDS = ("total_cost", "query_cost", "reorg_cost", "reorgs",
                  "rows_appended", "rows_pending", "compactions",
                  "clustering_debt", "total_excess")
 INGEST_SCENARIO_SEED = 7      # benchmarks/bench_ingest.py: bench_cell seed
+#: The full section's scenarios that ingest_parity runs (all five before
+#: the family phases; cut for the whole script's time).
+INGEST_FULL_SCENARIOS = ("mixed_rw", "trickle")
 INGEST_CELL = "fleet16-sf1-oreo-ingest-mixed_rw"
 INGEST_BATCH_ROWS = 37_508    # mixed_rw's 50 of 8,000 rows, at 6,001,215
 INGEST_TENANTS = 8            # the cell's 16 tenants, cut for script time
@@ -2331,6 +2369,8 @@ def phase_ingest_parity(device) -> dict:
         host = ({tid: d.cpu() for tid, d in data.items()}
                 if section == "smoke" else None)
         for scenario in sorted(core.INGEST_SCENARIOS):
+            if section == "full" and scenario not in INGEST_FULL_SCENARIOS:
+                continue
             stream = core.make_ingest_scenario(
                 scenario, lo, hi, num_tenants=cfg["tenants"],
                 queries_per_tenant=cfg["queries_per_tenant"],
@@ -2596,6 +2636,13 @@ FLASH_SHAPES = [  # (name, B, T, S, Hq, Hkv, dh, kwargs, head_pad)
     ("prefix_len 200", 1, 512, 512, 16, 8, 128, {"prefix_len": 200}, 0),
     ("g 8", 1, 256, 256, 32, 4, 128, {}, 0),
 ]
+#: The VLM's and audio family's prefills, drawn after FLASH_SHAPES (both
+#: dtypes) so that the earlier shapes' operands stay the same draws.
+FAMILY_FLASH_SHAPES = [
+    ("paligemma-3b prefill", 4, 2048, 2048, 8, 1, 256, {"prefix_len": 256},
+     0),
+    ("musicgen-large prefill", 4, 1024, 1024, 32, 32, 64, {}, 0),
+]
 #: The routes each dtype's cases are held and timed on; the first is the
 #: one the wrapper chooses for the main path's operands.
 FLASH_ROUTES = {"bfloat16": ("tensor_core", "scalar"), "float32": ("scalar",)}
@@ -2659,9 +2706,9 @@ def flash_operands(rng, b, t, s, hq, hkv, dh, dtype, device, head_pad):
 
 def phase_flash_kernel(device) -> dict:
     """flash_attention against its plain version on the card over
-    FLASH_SHAPES, each route of FLASH_ROUTES (both in bfloat16, atol = rtol
-    = 2e-2; the scalar one in float32, 1e-5), with CUDA-event times of each
-    route, the plain version and PyTorch's scaled_dot_product_attention
+    FLASH_SHAPES and FAMILY_FLASH_SHAPES, each route of FLASH_ROUTES (both
+    in bfloat16, atol = rtol = 2e-2; the scalar one in float32, 1e-5), with
+    CUDA-event times of each route, the plain version and PyTorch's scaled_dot_product_attention
     over 50 launches each; returns the kernel's summary at qwen3-1.7b's
     prefill shape in bfloat16: the tensor-core route as ``ms``, the scalar
     route (the earlier design) on the same tensors as
@@ -2676,10 +2723,12 @@ def phase_flash_kernel(device) -> dict:
     stream = _backend.stream_handle(device)
     results = []                # the chosen route's rows
     max_err = 0.0               # over every route
-    for dtype in (torch.bfloat16, torch.float32):
+    for shapes, dtype in [(shapes, dtype) for shapes in (
+            FLASH_SHAPES, FAMILY_FLASH_SHAPES)
+            for dtype in (torch.bfloat16, torch.float32)]:
         dname = str(dtype).split(".")[1]
         tol = FLASH_TOL[dname]
-        for name, b, t, s, hq, hkv, dh, kw, pad in FLASH_SHAPES:
+        for name, b, t, s, hq, hkv, dh, kw, pad in shapes:
             q, k, v = flash_operands(rng, b, t, s, hq, hkv, dh, dtype,
                                      device, pad)
             want = ref.flash_attention(q, k, v, **kw)
@@ -2956,7 +3005,8 @@ def profile_window(fn, focus: str = "") -> dict:
     return out
 
 
-def profile_serve(model, params, prompts, max_len: int, name: str) -> None:
+def profile_serve(model, params, prompts, max_len: int, name: str,
+                  phase: str = "serve_full") -> None:
     """One prefill of a full slot batch and four decode steps at the end of
     the cache, each under torch.profiler (after the main path's counts are
     read)."""
@@ -2979,20 +3029,23 @@ def profile_serve(model, params, prompts, max_len: int, name: str) -> None:
         for _ in range(4):
             c = decode_fn(params, {"tokens": tok}, c)[1]
     dec = profile_window(decode)
-    emit("serve_full", cell=name, profile="prefill (one slot batch)", **pre)
-    emit("serve_full", cell=name, profile="4 decode steps at the cache's "
-         "end", **dec)
+    emit(phase, cell=name, profile="prefill (one slot batch)", **pre)
+    emit(phase, cell=name, profile="4 decode steps at the cache's end",
+         **dec)
 
 
 def cell_serve(device, slots: int = SERVE_SLOTS,
                requests: int = SERVE_REQUESTS,
                prompt_len: int = SERVE_PROMPT,
                new_tokens: int = SERVE_NEW_TOKENS,
-               max_len: int = SERVE_MAX_LEN, arch: str = SERVE_ARCH) -> int:
+               max_len: int = SERVE_MAX_LEN, arch: str = SERVE_ARCH,
+               phase: str = "serve_full") -> int:
     """qwen3-1.7b-serve: qwen3-1.7b at full width (hf:Qwen/Qwen3-1.7B,
     configs/qwen3_1p7b.py) in bf16 with weights drawn on the card from a
     seeded generator, serving ``requests`` seeded prompts through the
-    examples/serve_model.py slot loop; returns the flash launches."""
+    examples/serve_model.py slot loop; returns the flash launches.  Another
+    ``arch`` serves the same way (an MoE's line adds the entries its
+    capacity dropped, per layer, at prefill and at decode)."""
     import numpy as np
     import torch
     from repro_torch import serve
@@ -3021,6 +3074,8 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
 
     def timed(fn, key):
         def run(params, batch, *rest):
+            if recorder is not None:
+                recorder.kind = key[:-2]
             torch.cuda.synchronize()
             t = time.perf_counter()
             logits, cache = fn(params, batch, *rest)
@@ -3031,6 +3086,8 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
             return logits, cache
         return run
     audit = FlashAudit(every=10)
+    recorder = (RouteRecorder(cfg.n_layers, device) if cfg.moe is not None
+                else None)
     fa.flash_attention.launches = 0
     by_route = fa.flash_attention.launches_by_route
     by_route.update(dict.fromkeys(by_route, 0))
@@ -3042,13 +3099,15 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
         torch.cuda.synchronize()
     finally:
         audit.close()
+        drops = recorder.close() if recorder is not None else None
     wall = time.perf_counter() - t0
     launches = fa.flash_attention.launches
     routes = dict(by_route)
     generated = sum(len(r.generated) for r in batcher.completed)
     in_range = all(0 <= t < cfg.vocab for r in batcher.completed
                    for t in r.generated)
-    emit("serve_full", cell=name, source=cfg.source,
+    moe = {} if drops is None else {"moe_capacity_drops": drops}
+    emit(phase, cell=name, source=cfg.source,
          params=cfg.num_params(), weight_bytes=weight_bytes,
          init_seconds=init_seconds, slots=slots, requests=requests,
          prompt_len=prompt_len, new_tokens=new_tokens, max_len=max_len,
@@ -3066,9 +3125,9 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
          flash_launches_per_prefill=launches / counts["prefills"],
          flash_checked=audit.checked, flash_max_abs_err=audit.max_abs_err,
          logits_finite=timing["finite"], tokens_in_vocab=in_range,
-         peak_bytes=torch.cuda.max_memory_allocated(device),
+         peak_bytes=torch.cuda.max_memory_allocated(device), **moe,
          card=card_line())
-    profile_serve(model, params, prompts[:slots], max_len, name)
+    profile_serve(model, params, prompts[:slots], max_len, name, phase)
     if len(batcher.completed) != requests or generated != requests * \
             new_tokens:
         raise AssertionError(f"{name}: {len(batcher.completed)} requests "
@@ -3110,6 +3169,10 @@ FLASH_BWD_SHAPES = [  # (name, B, T, S, Hq, Hkv, dh, kwargs, head_pad)
     ("dh 256 MQA", 1, 200, 200, 8, 1, 256, {}, 0),
     ("dh 192 head-strided views", 1, 130, 130, 6, 2, 192, {}, 2),
     ("g 8", 1, 256, 256, 32, 4, 128, {}, 0),
+]
+#: The VLM's training shape, drawn after FLASH_BWD_SHAPES (both dtypes).
+FAMILY_FLASH_BWD_SHAPES = [
+    ("paligemma-3b train", 2, 512, 512, 8, 1, 256, {"prefix_len": 256}, 0),
 ]
 
 
@@ -3156,9 +3219,9 @@ def sdpa_backward_ms(q, k, v, dout, kw, reps: int):
 
 def phase_flash_bwd_kernel(device) -> dict:
     """flash_attention_bwd against its plain backward on the card over
-    FLASH_BWD_SHAPES, each route of FLASH_BWD_ROUTES (both in bfloat16,
-    the scalar one in float32), each tensor within FLASH_BWD_TOL x its max
-    |grad| and bitwise equal across two launches; CUDA-event times of each
+    FLASH_BWD_SHAPES and FAMILY_FLASH_BWD_SHAPES, each route of
+    FLASH_BWD_ROUTES (both in bfloat16, the scalar one in float32), each
+    tensor within FLASH_BWD_TOL x its max |grad| and bitwise equal across two launches; CUDA-event times of each
     route, the plain backward and SDPA's backward; returns the kernel's
     summary at qwen3-1.7b's training shape in bfloat16: the tensor-core
     route as ``ms``, the scalar route (the earlier design) on the same
@@ -3169,10 +3232,12 @@ def phase_flash_bwd_kernel(device) -> dict:
     from repro_torch.kernels.flash_attention import ref
     rng = np.random.default_rng(5)
     results, max_err = [], 0.0
-    for dtype in (torch.bfloat16, torch.float32):
+    for shapes, dtype in [(shapes, dtype) for shapes in (
+            FLASH_BWD_SHAPES, FAMILY_FLASH_BWD_SHAPES)
+            for dtype in (torch.bfloat16, torch.float32)]:
         dname = str(dtype).split(".")[1]
         tol = FLASH_BWD_TOL[dname]
-        for name, b, t, s, hq, hkv, dh, kw, pad in FLASH_BWD_SHAPES:
+        for name, b, t, s, hq, hkv, dh, kw, pad in shapes:
             q, k, v = flash_operands(rng, b, t, s, hq, hkv, dh, dtype,
                                      device, pad)
             dout = flash_operands(rng, b, t, t, hq, hkv, dh, dtype, device,
@@ -3621,6 +3686,514 @@ def cell_train(device, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
                              f"kernel")
     return {"flash_attention": fwd, "flash_attention_bwd": bwd,
             "pruning": prunes}
+
+
+# ---------------------------------------------------------------------------
+# The VLM, audio and MoE families: card against CPU, then full-width cells
+# ---------------------------------------------------------------------------
+
+FAMILY_SEED = 2468
+#: family_parity's models at full width, cut in depth: (layers, batch,
+#: positions); paligemma's 288 are 256 patch embeddings and 32 tokens.
+FAMILY_PARITY = {"paligemma-3b": (2, 2, 288), "musicgen-large": (2, 2, 64),
+                 "moonshot-v1-16b-a3b": (2, 2, 64)}
+FAMILY_STEPS = 8
+VLM_TRAIN = (2, 512)          # batch, positions: 256 patch embeddings + 256
+FAMILY_SMOKE = ("paligemma-3b", "musicgen-large", "moonshot-v1-16b-a3b",
+                "phi3.5-moe-42b-a6.6b")
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_SLOTS, MOE_REQUESTS, MOE_PROMPT, MOE_NEW_TOKENS = 4, 8, 2048, 32
+#: family_full's embedding-input cells: (requests, positions, new tokens).
+EMBED_CELLS = {"paligemma-3b": (4, 2048, 32),
+               "musicgen-large": (4, 1024, 64)}
+
+
+class RouteRecorder:
+    """Wraps ``layers.moe_route``: counts each MoE layer's dropped (token,
+    expert) entries on the card, split by ``kind`` (the caller sets
+    "prefill" or "decode"), and with ``keep_routes`` keeps each call's
+    expert choices and kept masks on the host.  It launches no kernel of
+    the port's; the counts are a sum on the card, read at the end."""
+
+    def __init__(self, n_layers: int, device, keep_routes: bool = False):
+        import torch
+        from repro_torch.models import layers
+        self.layers, self.inner, self.n = layers, layers.moe_route, n_layers
+        self.keep_routes, self.routes, self.calls = keep_routes, [], 0
+        self.kind = "prefill"
+        self.dropped = {k: torch.zeros(n_layers, dtype=torch.int64,
+                                       device=device)
+                        for k in ("prefill", "decode")}
+        self.entries = {"prefill": 0, "decode": 0}
+        layers.moe_route = self
+
+    def close(self) -> dict:
+        """Restores ``moe_route``; returns the drops per layer and the
+        entries routed, by kind."""
+        self.layers.moe_route = self.inner
+        return {k: {"dropped_per_layer": v.tolist(),
+                    "entries_routed": self.entries[k]}
+                for k, v in self.dropped.items()}
+
+    def __call__(self, logits, k, capacity):
+        r = self.inner(logits, k, capacity)
+        layer = self.calls % self.n
+        self.calls += 1
+        self.dropped[self.kind][layer] += (~r["keep"]).sum()
+        self.entries[self.kind] += r["keep"].numel()
+        if self.keep_routes:
+            self.routes.append((r["expert_idx"].cpu(), r["keep"].cpu()))
+        return r
+
+
+def family_cut(arch: str, layers: int):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch), n_layers=layers)
+
+
+def family_weights(cfg):
+    """The port's model of ``cfg`` in float32 on the host, drawn by its own
+    init from a CPU torch.Generator (bf16-exact values, zero norms)."""
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(cfg, "cpu")
+    return model.init_params(torch.Generator().manual_seed(
+        FAMILY_SEED)).float()
+
+
+def family_inputs(cfg, batch: int, positions: int):
+    """A prompt batch (embeds and/or tokens from a numpy seed) and each
+    decode step's frame embeddings for the audio family."""
+    import numpy as np
+    rng = np.random.default_rng(FAMILY_SEED)
+    d = cfg.d_model
+    out = {}
+    if cfg.embed_input:
+        n = cfg.prefix_len if cfg.family == "vlm" else positions
+        out["embeds"] = rng.standard_normal((batch, n, d), dtype=np.float32)
+    if cfg.family != "audio":
+        n = positions - cfg.prefix_len if cfg.family == "vlm" else positions
+        out["tokens"] = rng.integers(0, cfg.vocab, (batch, n))
+    frames = rng.standard_normal((FAMILY_STEPS, batch, 1, d),
+                                 dtype=np.float32)
+    return out, frames
+
+
+def family_serve_run(device, cfg, params, batch: int,
+                     positions: int) -> dict:
+    """A prefill and FAMILY_STEPS greedy decode steps (the audio family fed
+    seeded frames): tokens (codes), each step's logits on the host, every
+    MoE call's routes, the flash launches and the seconds."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(cfg, device)
+    inputs, frames = family_inputs(cfg, batch, positions)
+    recorder = (RouteRecorder(cfg.n_layers, device, keep_routes=True)
+                if cfg.moe is not None else None)
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    try:
+        prefill_fn, decode_fn = serve.build_serve_fns(
+            model, positions + FAMILY_STEPS)
+        logits, cache = prefill_fn(params, inputs)
+        out_logits, toks = [logits.float().cpu()], []
+        for i in range(FAMILY_STEPS):
+            tok = logits[:, -1].argmax(-1)[:, None]
+            toks.append(tok.cpu())
+            if recorder is not None:
+                recorder.kind = "decode"
+            step = ({"embeds": frames[i]} if cfg.family == "audio"
+                    else {"tokens": tok})
+            logits, cache = decode_fn(params, step, cache)
+            out_logits.append(logits.float().cpu())
+    finally:
+        drops = recorder.close() if recorder is not None else None
+    fwd, _, routes, _ = flash_counts()
+    return {"tokens": torch.cat(toks, 1), "logits": out_logits,
+            "routes": recorder.routes if recorder is not None else [],
+            "drops": drops, "flash_launches": fwd, "flash_by_route": routes,
+            "seconds": time.perf_counter() - t0}
+
+
+def vlm_train_batch(cfg) -> dict:
+    """VLM_TRAIN's batch: family_inputs' embeddings and tokens, and seeded
+    targets, -1 over the prefix."""
+    import numpy as np
+    batch, _ = family_inputs(cfg, *VLM_TRAIN)
+    targets = np.random.default_rng(FAMILY_SEED + 1).integers(
+        0, cfg.vocab, VLM_TRAIN)
+    targets[:, :cfg.prefix_len] = -1
+    return dict(batch, targets=targets)
+
+
+def vlm_train_run(device, params) -> dict:
+    """paligemma's loss and every gradient (float32, on the host) at
+    VLM_TRAIN: 256 patch embeddings and 256 text tokens a row, the prefix's
+    targets ignored.  The token embedding's gradient is kept for the rows
+    the batch reads; ``embed_other_rows_zero`` says the others are 0."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model, transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = family_cut("paligemma-3b", FAMILY_PARITY["paligemma-3b"][0])
+    model = build_model(cfg, device)
+    batch = vlm_train_batch(cfg)
+    transformer.trainable(params)
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    try:
+        names, leaves = zip(*params.named_parameters())
+        loss = model.loss_fn(params, batch)
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    finally:
+        for p in params.parameters():
+            p.requires_grad_(False)
+    rows = torch.as_tensor(np.unique(batch["tokens"]), device=device)
+    used = torch.zeros(cfg.vocab, dtype=torch.bool, device=device)
+    used[rows] = True
+    embed = grads.pop("embed")
+    out = {n: g.float().cpu() for n, g in grads.items()}
+    out["embed_rows"] = embed[rows].float().cpu()
+    zero_elsewhere = not bool(embed[~used].abs().max())
+    del grads, embed
+    fwd, bwd, routes, bwd_routes = flash_counts()
+    return {"loss": float(loss.detach()), "grads": out,
+            "embed_other_rows_zero": zero_elsewhere,
+            "seconds": time.perf_counter() - t0,
+            "counts": (fwd, bwd, routes, bwd_routes)}
+
+
+def family_parity_cpu(path: str) -> dict:
+    """family_parity's CPU side in a spawned process on two threads: each
+    model's serving run, then paligemma's loss and gradients; the results
+    go to the torch.save file ``path``."""
+    import torch
+    torch.set_num_threads(2)
+    cpu = torch.device("cpu")
+    out = {}
+    for arch, (layers, batch, positions) in FAMILY_PARITY.items():
+        cfg = family_cut(arch, layers)
+        params = family_weights(cfg)
+        out[arch] = family_serve_run(cpu, cfg, params, batch, positions)
+        if arch == "paligemma-3b":
+            out["vlm_train"] = vlm_train_run(cpu, params)
+        del params
+    torch.save(out, path)
+    return {arch: r["seconds"] for arch, r in out.items()}
+
+
+def start_family_parity_cpu():
+    """Starts family_parity's CPU side in a spawned process and, in a
+    thread of this one, draws the card side's host weights (the same CPU
+    generator, one core); returns a function that waits for both and gives
+    (the CPU side's results, {arch: host weights})."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    import tempfile
+    import threading
+    import torch
+    fd, path = tempfile.mkstemp(suffix=".pt")
+    os.close(fd)
+    pool = cf.ProcessPoolExecutor(max_workers=1,
+                                  mp_context=mp.get_context("spawn"))
+    future = pool.submit(family_parity_cpu, path)
+    pool.shutdown(wait=False)
+    weights = {}
+
+    def draw():
+        for arch, (layers, _, _) in FAMILY_PARITY.items():
+            weights[arch] = family_weights(family_cut(arch, layers))
+    thread = threading.Thread(target=draw, daemon=True)
+    thread.start()
+
+    def result() -> tuple:
+        future.result()
+        thread.join()
+        out = torch.load(path)
+        os.remove(path)
+        return out, weights
+    return result
+
+
+def smoke_train_parity(device) -> None:
+    """One float32 AdamW step of each FAMILY_SMOKE config on the card and
+    on the CPU from the same weights (drawn by the port's init from a CPU
+    generator): loss, gradient norm and every parameter after the step."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, transformer
+    from repro_torch.train import (OptimizerConfig, build_train_step,
+                                   init_opt_state)
+    opt_cfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=0, total_steps=10,
+                              eps=1e-3)
+    for arch in FAMILY_SMOKE:
+        cfg = get_arch(arch, smoke=True)
+        weights = build_model(cfg, "cpu").init_params(
+            torch.Generator().manual_seed(FAMILY_SEED)).float()
+        batch, _ = family_inputs(cfg, 2, 32)
+        batch["targets"] = np.random.default_rng(FAMILY_SEED).integers(
+            0, cfg.vocab, (2, 32))
+        runs = {}
+        for dev in (device, torch.device("cpu")):
+            params = transformer.trainable(copy.deepcopy(weights).to(dev))
+            state = {"params": params, "opt": init_opt_state(params,
+                                                             opt_cfg)}
+            reset_flash_counts()
+            state, metrics = build_train_step(build_model(cfg, dev),
+                                              opt_cfg)(state, batch)
+            runs[dev.type] = (float(metrics["loss"]),
+                              float(metrics["grad_norm"]),
+                              {n: p.detach().cpu() for n, p in
+                               state["params"].named_parameters()},
+                              flash_counts()[:2])
+        card, host = runs[device.type], runs["cpu"]
+        worst = max(float((card[2][n] - p).abs().max())
+                    for n, p in host[2].items())
+        row = {"arch": arch, "loss_card": card[0], "loss_cpu": host[0],
+               "grad_norm_card": card[1], "grad_norm_cpu": host[1],
+               "worst_param_err": worst, "flash_launches_card": card[3]}
+        emit("family_parity", part="smoke train step", **row)
+        if (abs(card[0] - host[0]) > 1e-5 * abs(host[0])
+                or abs(card[1] - host[1]) > 1e-4 * abs(host[1])
+                or worst > 2e-6):
+            raise AssertionError(f"family_parity: {arch}'s smoke train step "
+                                 f"differs card vs CPU: {row}")
+        if device.type == "cuda" and card[3] != (2 * cfg.n_layers,
+                                                 cfg.n_layers):
+            raise AssertionError(f"family_parity: {arch}'s smoke step made "
+                                 f"{card[3]} flash launches")
+
+
+def phase_family_parity(device, host) -> None:
+    """Card against CPU in float32 (TF32 off) at full width, cut in depth
+    (FAMILY_PARITY): each model's greedy tokens (codes) over a prefill and
+    FAMILY_STEPS decode steps equal, every step's logits within 1e-3 x
+    max |logit|, the MoE's expert choices and kept masks equal at every
+    layer; paligemma's loss and every gradient at VLM_TRAIN within
+    train_parity (a)'s limits (the backward's prefix path at dh 256 with
+    one KV head), and a bf16 train step of the same weights on the
+    tensor-core route; then each FAMILY_SMOKE config's train step.
+    ``host`` is start_family_parity_cpu's function."""
+    import torch
+    from repro_torch.models import build_model, transformer
+    from repro_torch.train import (OptimizerConfig, build_train_step,
+                                   init_opt_state)
+    t0 = time.perf_counter()
+    cpu_runs, weights = host()
+    waited = time.perf_counter() - t0
+    for arch, (layers, batch, positions) in FAMILY_PARITY.items():
+        cfg = family_cut(arch, layers)
+        params = weights.pop(arch).to(device)
+        card = family_serve_run(device, cfg, params, batch, positions)
+        cpu = cpu_runs[arch]
+        rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(card["logits"], cpu["logits"]))
+        finite = all(bool(torch.isfinite(x).all()) for x in card["logits"])
+        equal = torch.equal(card["tokens"], cpu["tokens"])
+        routes_equal = len(card["routes"]) == len(cpu["routes"]) and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(card["routes"], cpu["routes"]))
+        emit("family_parity", model=f"{arch} full width, {layers} layers",
+             batch=batch, positions=positions, steps=FAMILY_STEPS,
+             dtype="float32", tokens_equal=equal, max_rel_logit_err=rel,
+             finite=finite, moe_calls=len(card["routes"]),
+             routes_equal=routes_equal, moe_drops=card["drops"],
+             card_seconds=card["seconds"], cpu_seconds=cpu["seconds"],
+             flash_launches_card=card["flash_launches"],
+             flash_launches_by_route=card["flash_by_route"])
+        if not (equal and finite and rel <= 1e-3 and routes_equal):
+            raise AssertionError(f"family_parity: {arch} differs card vs "
+                                 f"CPU (tokens {equal}, logits {rel}, "
+                                 f"routes {routes_equal})")
+        if card["flash_launches"] != layers or (
+                cfg.moe is not None and not card["routes"]):
+            raise AssertionError(f"family_parity: {arch} made "
+                                 f"{card['flash_launches']} flash launches "
+                                 f"and {len(card['routes'])} MoE calls")
+        if arch != "paligemma-3b":
+            del params
+            release(device)
+            continue
+        got, want = vlm_train_run(device, params), cpu_runs["vlm_train"]
+        worst = 0.0
+        for n, g in want["grads"].items():
+            err = float((got["grads"][n] - g).abs().max())
+            scale = float(g.abs().max())
+            if not (err <= 1e-4 * scale or err == 0.0):
+                raise AssertionError(f"family_parity: paligemma's gradient "
+                                     f"{n} differs card vs CPU by {err} "
+                                     f"(max |g| {scale})")
+            worst = max(worst, err / scale if scale else 0.0)
+        loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        fwd, bwd, routes, bwd_routes = got["counts"]
+        # The same weights in bf16 (each is bf16-exact; norms stay float32):
+        # one AdamW step through the tensor-core routes.
+        for p in params.parameters():
+            if p.dim() > 1:
+                p.data = p.data.to(torch.bfloat16)
+        model = build_model(cfg, device)
+        opt_cfg = OptimizerConfig()
+        transformer.trainable(params)
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        reset_flash_counts()
+        _, metrics = build_train_step(model, opt_cfg)(state,
+                                                      vlm_train_batch(cfg))
+        bf16_loss = float(metrics["loss"])
+        bf16 = flash_counts()
+        emit("family_parity", part="paligemma-3b train, 2 layers",
+             tokens=list(VLM_TRAIN), prefix_len=cfg.prefix_len,
+             dtype="float32", loss_card=got["loss"], loss_cpu=want["loss"],
+             loss_rel_err=loss_rel, worst_grad_err_over_max=worst,
+             embed_other_rows_zero=[got["embed_other_rows_zero"],
+                                    want["embed_other_rows_zero"]],
+             card_seconds=got["seconds"], cpu_seconds=want["seconds"],
+             flash_launches_card=fwd, flash_launches_by_route=routes,
+             flash_bwd_launches_card=bwd,
+             flash_bwd_launches_by_route=bwd_routes,
+             bf16_step_loss=bf16_loss, bf16_step_flash_launches=bf16[0],
+             bf16_step_flash_by_route=bf16[2],
+             bf16_step_flash_bwd_launches=bf16[1],
+             bf16_step_flash_bwd_by_route=bf16[3])
+        if loss_rel > 1e-5 or not (got["embed_other_rows_zero"]
+                                   and want["embed_other_rows_zero"]):
+            raise AssertionError(f"family_parity: paligemma's loss differs "
+                                 f"card vs CPU ({loss_rel})")
+        if (fwd, bwd) != (2 * layers, layers) or bwd_routes["scalar"] != bwd:
+            raise AssertionError(f"family_parity: paligemma's float32 "
+                                 f"gradients made {fwd} forward and {bwd} "
+                                 f"backward ({bwd_routes}) launches")
+        if not abs(bf16_loss - got["loss"]) <= 2e-2 * abs(got["loss"]) \
+                or bf16[:2] != (2 * layers, layers) \
+                or bf16[3]["tensor_core"] != layers:
+            raise AssertionError(f"family_parity: paligemma's bf16 step: "
+                                 f"loss {bf16_loss}, launches {bf16}")
+        del params, state, model, got, want
+        release(device)
+    smoke_train_parity(device)
+    emit("family_parity", waited_for_cpu_seconds=waited,
+         seconds=time.perf_counter() - t0)
+
+
+def cell_embed_serve(device, arch: str) -> int:
+    """paligemma-3b-serve or musicgen-large-serve: the model at full width
+    and depth in bf16, weights drawn on the card from a seeded generator,
+    EMBED_CELLS[arch]'s requests served as one batch: a prefill of seeded
+    patch embeddings and text tokens (paligemma) or frame embeddings
+    (musicgen), then greedy decode steps, fed each step's token (paligemma)
+    or a seeded frame embedding (musicgen).  Returns the flash launches."""
+    import numpy as np
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    requests, positions, new_tokens = EMBED_CELLS[arch]
+    name = f"{arch}-serve"
+    cfg = get_arch(arch)
+    model = build_model(cfg, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device).manual_seed(
+        FAMILY_SEED))
+    gen = torch.Generator(device).manual_seed(FAMILY_SEED + 1)
+    n_embeds = cfg.prefix_len if cfg.family == "vlm" else positions
+    batch = {"embeds": torch.randn((requests, n_embeds, cfg.d_model),
+                                   generator=gen, device=device).to(
+        torch.bfloat16)}
+    if cfg.family == "vlm":
+        batch["tokens"] = torch.as_tensor(np.random.default_rng(
+            FAMILY_SEED).integers(0, cfg.vocab, (requests,
+                                                 positions - n_embeds)),
+            device=device)
+    frames = torch.randn((new_tokens, requests, 1, cfg.d_model),
+                         generator=gen, device=device).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    max_len = positions + new_tokens
+    spec = model.cache_spec(requests, max_len)["k"]
+    cache_bytes = 2 * int(np.prod(spec[0])) * spec[1].itemsize
+    prefill_fn, decode_fn = serve.build_serve_fns(model, max_len)
+    audit = FlashAudit(every=10)
+    reset_flash_counts()
+    finite = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        finite &= bool(torch.isfinite(logits).all())
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out = []
+        t0 = time.perf_counter()
+        for i in range(new_tokens):
+            step = ({"embeds": frames[i]} if cfg.family == "audio"
+                    else {"tokens": tok})
+            logits, cache = decode_fn(params, step, cache)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            out.append(tok)
+        generated = torch.cat(out, 1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        finite &= bool(torch.isfinite(logits).all())
+    finally:
+        audit.close()
+    launches, _, routes, _ = flash_counts()
+    completed = int(((generated >= 0)
+                     & (generated < cfg.vocab)).all(1).sum())
+    emit("family_full", cell=name, source=cfg.source,
+         params=cfg.num_params(), weight_bytes=sum(
+             p.numel() * p.element_size() for p in params.parameters()),
+         init_seconds=init_seconds, requests=requests, positions=positions,
+         prefix_len=cfg.prefix_len, new_tokens=new_tokens, max_len=max_len,
+         kv_cache_bytes=cache_bytes, prefill_seconds=prefill_s,
+         prompt_tokens_per_s=requests * positions / prefill_s,
+         decode_seconds=decode_s,
+         seconds_per_output_token=decode_s / new_tokens,
+         decode_tokens_per_s=requests * new_tokens / decode_s,
+         requests_completed=completed,
+         tokens_generated=int(generated.numel()), flash_launches=launches,
+         flash_launches_by_route=routes, flash_checked=audit.checked,
+         flash_max_abs_err=audit.max_abs_err, logits_finite=finite,
+         peak_bytes=torch.cuda.max_memory_allocated(device),
+         card=card_line())
+    pre = profile_window(lambda: prefill_fn(params, batch),
+                         focus="flash_attention")
+    emit("family_full", cell=name, profile="prefill (the request batch)",
+         **pre)
+    if completed != requests or generated.shape != (requests, new_tokens):
+        raise AssertionError(f"{name}: {completed} of {requests} requests "
+                             f"completed")
+    if launches != cfg.n_layers or routes["tensor_core"] != launches:
+        raise AssertionError(f"{name}: {launches} flash launches "
+                             f"({routes}) for one prefill")
+    if not finite or not audit.checked:
+        raise AssertionError(f"{name}: non-finite logits or no flash launch "
+                             f"checked")
+    return launches
+
+
+def phase_family_full(device) -> dict:
+    """The three family cells, each alone on the card; returns each main
+    path's launch counts."""
+    runs = {}
+    for arch in EMBED_CELLS:
+        runs[f"{arch}-serve"] = {"flash_attention": cell_embed_serve(device,
+                                                                     arch)}
+        release(device)
+    runs[f"{MOE_ARCH}-serve"] = {"flash_attention": cell_serve(
+        device, MOE_SLOTS, MOE_REQUESTS, MOE_PROMPT, MOE_NEW_TOKENS,
+        MOE_PROMPT + 2 * MOE_NEW_TOKENS, arch=MOE_ARCH,
+        phase="family_full")}
+    release(device)
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -4988,6 +5561,10 @@ FORECAST_QUERIES = 750        # BENCH_forecast.json's 1,500, cut for the
 FORECAST_SCENARIO_SEED = 7    # benchmarks/bench_forecast.py: bench_cell seed
 FORECAST_WORKERS = 4          # forecast_parity's job processes
 FORECAST_LABELS = ("unlimited", "k1", "bucket")
+#: The scenarios without pre-positions whose unlimited full-section row
+#: forecast_parity runs (all eight before the family phases; the five
+#: ingest scenarios' rows are cut for the whole script's time).
+FORECAST_FULL_UNLIMITED = ("sudden_shift", "flash_crowd", "template_churn")
 #: The full section's rows run on run_batched, whose traces are run's bit
 #: for bit (the smoke section, the churn fleet and forecast_full's arm C
 #: hold that): it primes each event's estimate from the pass's one launch
@@ -5364,7 +5941,8 @@ def forecast_jobs(device, bench: dict, churn_rows: int) -> list:
              "side": "card", "device": device.type}]
     for scenario in scenarios:
         labels = (FORECAST_LABELS if scenario in bench["forecastable_scenarios"]
-                  else FORECAST_LABELS[:1])
+                  else FORECAST_LABELS[:1]
+                  if scenario in FORECAST_FULL_UNLIMITED else ())
         jobs += [{"kind": "bench", "section": "full", "config": cfg,
                   "scenario": scenario, "schedulers": [label],
                   "lane": FORECAST_FULL_LANE, "side": "card",
@@ -5387,14 +5965,14 @@ def phase_forecast_parity(device, workers: int = FORECAST_WORKERS,
     """(a) BENCH_forecast.json's forecast_smoke section in full, card ==
     file and card == CPU; (b) the full section's rows with pre-positions
     (gradual_drift and cyclic_diurnal, every scheduler) and the unlimited
-    row of the other eight scenarios, card == file field for field; (c)
-    the churn fleet: run_batched on both lanes and the incremental fleet
-    on both planner lanes equal run, card == CPU, then a cross-process
-    migration of a tenant holding a live grown state equal to the inline
-    router, and a saved forecast engine that stays one table.  The jobs
-    all run in ``workers`` spawned processes (the loops are the host's),
-    so this process touches nothing on the card; it runs ``meanwhile()``
-    if given (the script passes the tpch-sf10 table's build, which leaves
+    row of FORECAST_FULL_UNLIMITED's scenarios, card == file field for
+    field; (c) the churn fleet: run_batched on both lanes and the
+    incremental fleet on both planner lanes equal run, card == CPU, then a
+    cross-process migration of a tenant holding a live grown state equal
+    to the inline router, and a saved forecast engine that stays one
+    table.  The jobs all run in ``workers`` spawned processes (the loops
+    are the host's), so this process touches nothing on the card; it runs
+    ``meanwhile()`` if given (the script passes the tpch-sf10 table's build, which leaves
     the card idle).  Returns the card's launches and what ``meanwhile``
     returned."""
     import concurrent.futures as cf
@@ -5442,7 +6020,8 @@ def phase_forecast_parity(device, workers: int = FORECAST_WORKERS,
          drive=f"run_batched({FORECAST_FULL_LANE})",
          rows_run=len(ran), rows=ran, equal_to_file=not bad,
          why="every scheduler of the two scenarios with pre-positions, the "
-             "unlimited row of the other eight: the script's time limit")
+             "unlimited row of the three other drift scenarios: the "
+             "script's time limit")
     # (a) the smoke section: card == file and card == CPU.
     smoke = bench["forecast_smoke"]["forecast_vs_reactive"]
     ratios, same = {}, True
@@ -5814,6 +6393,8 @@ def main(argv=None) -> int:
             (lambda: sf10_inputs(device, args.queries))
             if phases & {"full", "zorder_full"} else None))
         done("forecast_parity (and the tpch-sf10 table)")
+    family_host = (start_family_parity_cpu() if "family_parity" in phases
+                   else None)
     runs = {}
     if phases & {"full", "zorder_full"}:
         data, stream = sf10 or sf10_inputs(device, args.queries)
@@ -5863,6 +6444,14 @@ def main(argv=None) -> int:
         runs[f"{TRAIN_ARCH}-train"] = cell_train(device)
         release(device)
         done("train_full")
+    if "family_parity" in phases:
+        phase_family_parity(device, host=family_host)
+        release(device)
+        done("family_parity")
+    if "family_full" in phases:
+        runs.update(phase_family_full(device))
+        release(device)
+        done("family_full")
     for name, summary in kernels.items():
         summary["launches"] = (sum(r.get(name, 0) for r in runs.values())
                                if runs else None)

@@ -1,4 +1,5 @@
-"""Architecture and shape configuration registry (dense family so far)."""
+"""Architecture and shape configuration registry (dense, MoE, VLM and
+audio families)."""
 from repro_torch.configs.base import (LATER_ARCHS, LATER_FAMILIES, SHAPES,
                                       ArchConfig, MoEConfig, ShapeConfig,
                                       SSMConfig, get_arch, list_archs)

@@ -5,9 +5,9 @@ counts and registry, so a configuration name means the same model in both
 packages.  Each architecture's module registers its published
 :class:`ArchConfig` and a reduced ``smoke`` variant for the CPU tests.
 
-Only the dense family is registered so far.  The other families (MoE, SSM,
-hybrid, VLM, audio) are registered when their models are ported; until
-then :func:`get_arch` raises ``KeyError`` naming the slice that ports them.
+The dense, MoE, VLM and audio families are registered.  The SSM and
+hybrid families are registered when their models are ported; until then
+:func:`get_arch` raises ``KeyError`` naming the slice that ports them.
 """
 from __future__ import annotations
 
@@ -135,18 +135,11 @@ SHAPES: Dict[str, ShapeConfig] = {
 
 #: Model families not ported yet, with the slice that ports each.
 LATER_FAMILIES: Dict[str, str] = {
-    "moe": "the MoE slice",
     "ssm": "the SSM slice (RWKV-6)",
     "hybrid": "the hybrid slice (Mamba-2 + shared attention)",
-    "vlm": "the VLM slice (prefix-LM)",
-    "audio": "the audio slice (frame embeddings)",
 }
 #: Architectures of ``repro`` not registered here yet, with their family.
-LATER_ARCHS: Dict[str, str] = {
-    "phi3.5-moe-42b-a6.6b": "moe", "moonshot-v1-16b-a3b": "moe",
-    "rwkv6-3b": "ssm", "zamba2-2.7b": "hybrid", "paligemma-3b": "vlm",
-    "musicgen-large": "audio",
-}
+LATER_ARCHS: Dict[str, str] = {"rwkv6-3b": "ssm", "zamba2-2.7b": "hybrid"}
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 _SMOKE_REGISTRY: Dict[str, ArchConfig] = {}
@@ -185,4 +178,6 @@ def _ensure_loaded() -> None:
     _LOADED = True
     # Importing the modules triggers register() calls.
     from repro_torch.configs import (chatglm3_6b, minitron_4b,  # noqa: F401
-                                     nemotron4_340b, qwen3_1p7b)
+                                     moonshot_v1_16b, musicgen_large,
+                                     nemotron4_340b, paligemma_3b,
+                                     phi35_moe, qwen3_1p7b)

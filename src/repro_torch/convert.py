@@ -89,7 +89,8 @@ def _weight(a, device: torch.device, dtype) -> torch.Tensor:
 def ref_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
     """The reference's leaf path of the port's parameter ``name`` and the
     index of its layer on that leaf's stacked axis 0 (None outside
-    ``layers``): ``layers.3.attn.wq`` is ``("layers", "attn", "wq")``, 3."""
+    ``layers``): ``layers.3.attn.wq`` is ``("layers", "attn", "wq")``, 3,
+    and ``layers.3.moe.router`` is ``("layers", "moe", "router")``, 3."""
     parts = tuple(name.split("."))
     if parts[0] == "layers":
         return ("layers",) + parts[2:], int(parts[1])
@@ -127,13 +128,15 @@ def ref_groups(names) -> Dict[Tuple[str, ...], List[str]]:
 def transformer_params(tree, cfg, device: Device = None,
                        dtype: Optional[torch.dtype] = None
                        ) -> transformer.Transformer:
-    """The port's dense transformer with the weights of ``tree``.
+    """The port's transformer (dense, MoE, VLM or audio) with the weights
+    of ``tree``.
 
     ``tree`` is the reference's parameter tree as nested dicts of numpy
     arrays: ``embed`` (V, d), ``layers`` with every leaf stacked on axis 0
-    (``attn`` {wq, wk, wv, wo, q_norm, k_norm}, ``ln1``, ``ln2``, ``mlp``),
-    ``final_norm`` (d,) and ``head`` (d, V).  Each leaf keeps its dtype
-    unless ``dtype`` is given.
+    (``attn`` {wq, wk, wv, wo, q_norm, k_norm}, ``ln1``, ``ln2``, and
+    ``mlp`` or ``moe`` {router, w_gate, w_up, w_down}), ``final_norm``
+    (d,) and ``head`` (d, V).  Each leaf keeps its dtype unless ``dtype``
+    is given.
     """
     dev = resolve_device(device)
     transformer.check_family(cfg)
@@ -143,14 +146,19 @@ def transformer_params(tree, cfg, device: Device = None,
 
     blocks = []
     for i in range(cfg.n_layers):
-        at, ml = f"layers.{i}.attn.", f"layers.{i}.mlp."
+        at = f"layers.{i}.attn."
         norms = ((w(at + "q_norm"), w(at + "k_norm")) if cfg.qk_norm
                  else (None, None))
+        if cfg.moe is not None:
+            ffn = L.MoE(*(w(f"layers.{i}.moe.{k}")
+                          for k in ("router", "w_gate", "w_up", "w_down")))
+        else:
+            ffn = L.MLP(**{k: w(f"layers.{i}.mlp.{k}")
+                           for k in tree["layers"]["mlp"]})
         blocks.append(transformer.Block(
             L.Attention(*(w(at + k) for k in ("wq", "wk", "wv", "wo")),
                         *norms),
-            L.MLP(**{k: w(ml + k) for k in tree["layers"]["mlp"]}),
-            w(f"layers.{i}.ln1"), w(f"layers.{i}.ln2")))
+            ffn, w(f"layers.{i}.ln1"), w(f"layers.{i}.ln2")))
     return transformer.Transformer(w("embed"), blocks, w("final_norm"),
                                    w("head"))
 

@@ -1,10 +1,19 @@
 """End-to-end training driver; the counterpart of ``repro.launch.train``.
 
-Runs a registered dense architecture (reduced ``--smoke`` configs on the
-CPU, full configs on the card) with the OREO-managed data pipeline, AdamW,
+Runs a registered architecture (reduced ``--smoke`` configs on the CPU,
+full configs on the card) with the OREO-managed data pipeline, AdamW,
 per-layer remat, checkpoint/restart and metric logging, and writes
 ``train_summary.json`` into the checkpoint directory.  ``--device`` picks
 the device (the card by default); families not ported yet raise.
+
+Stub frontends (``cfg.embed_input``) take embeddings: each step's tokens
+become seeded (B, T, d_model) bf16 embeddings (:func:`stub_embeds`),
+cached with the step's batch so a restart replays them.  They are drawn
+from a ``torch.Generator`` seeded with the step, not from the reference's
+``jax.random`` stream, which cannot be reproduced without JAX: the same
+step gives the same embeddings on one device, not the reference's.  As in
+the reference, the tokens are dropped, so the VLM (patch embeddings and
+text tokens) does not run here.
 
 Example (CPU, the smoke config, a few steps)::
 
@@ -41,6 +50,16 @@ def scale_config(cfg, d_model=None, n_layers=None, vocab=None):
     if vocab:
         updates["vocab"] = vocab
     return dataclasses.replace(cfg, **updates) if updates else cfg
+
+
+def stub_embeds(shape, d_model: int, step: int,
+                device: torch.device) -> torch.Tensor:
+    """A stub frontend's embeddings for the tokens of one step: normal
+    draws of ``shape + (d_model,)`` from a generator seeded with
+    ``step`` on ``device``, rounded to bf16."""
+    gen = torch.Generator(device=device).manual_seed(step)
+    return torch.randn(tuple(shape) + (d_model,), generator=gen,
+                       device=device).to(torch.bfloat16)
 
 
 def main(argv=None) -> dict:
@@ -94,6 +113,10 @@ def main(argv=None) -> dict:
         if step not in cache:
             cache[step] = {k: torch.as_tensor(v, device=dev)
                            for k, v in next(pipe_iter).items()}
+            if cfg.embed_input:          # stub frontends take embeddings
+                tok = cache[step].pop("tokens")
+                cache[step]["embeds"] = stub_embeds(tok.shape, cfg.d_model,
+                                                    step, dev)
         return cache[step]
 
     trainer = FaultTolerantTrainer(train_step, state, batch_fn,

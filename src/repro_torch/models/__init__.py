@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense decoder-only transformer so far."""
+"""Model zoo of the port: the decoder-only transformer (dense, MoE, VLM,
+audio)."""
 from repro_torch.models import factory, layers, losses, transformer
 from repro_torch.models.factory import ModelBundle, build_model
 

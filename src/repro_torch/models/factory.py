@@ -4,8 +4,9 @@
 functions take the parameters explicitly, as ``repro.models.factory``'s
 do, so a serving loop reads the same in both packages.  The bundle runs on
 the card unless ``device="cpu"`` is given; without a card the default
-raises.  Only the dense family is ported; ``input_specs`` belongs to the
-launch slice.
+raises.  The dense, MoE, VLM and audio families are ported (one
+transformer); the SSM and hybrid families raise naming their slice, and
+``input_specs`` belongs to the launch slice.
 """
 from __future__ import annotations
 

@@ -1,12 +1,12 @@
-"""Shared model layers of the dense transformer: norms, RoPE, GQA
-attention, MLPs.
+"""Shared model layers of the transformer: norms, RoPE, GQA attention,
+MLPs and the top-k MoE.
 
-The counterpart of ``repro.models.layers`` (dense parts): parameters live
-in :class:`torch.nn.Module` s (:class:`Attention`, :class:`MLP`) whose
-tensors keep the reference's ``(d_in, d_out)`` orientation, and the layer
-math is plain functions on tensors with the reference's names and
-signatures.  Products are ``x @ w`` through :func:`torch.matmul`, as the
-reference leaves them to XLA outside any kernel.
+The counterpart of ``repro.models.layers``: parameters live in
+:class:`torch.nn.Module` s (:class:`Attention`, :class:`MLP`,
+:class:`MoE`) whose tensors keep the reference's ``(d_in, d_out)``
+orientation, and the layer math is plain functions on tensors with the
+reference's names and signatures.  Products are ``x @ w`` through
+:func:`torch.matmul`, as the reference leaves them to XLA outside any kernel.
 
 :func:`flash_attention` is the CUDA kernel's wrapper: on CUDA tensors it
 launches ``csrc/flash_attention.cu``, on CPU tensors it runs the plain
@@ -16,8 +16,19 @@ here every prefill attention on the card runs the kernel.  Decode
 attention (one query over the cache) stays plain PyTorch, as the reference
 computes it in jnp outside any kernel.  Training differentiates through
 the kernel's autograd Function (its backward is a kernel too); remat is the
-transformer's.  MoE and sharding belong to later slices; the reference's
-sharding constraints are no-ops on one card and are dropped.
+transformer's.  The reference's sharding constraints are no-ops on one
+card and are dropped; its remat policy and spec helpers belong to the
+launch slice.
+
+The MoE keeps the reference's sort-based dispatch and its capacity drops
+token for token (:func:`moe_route`): ``jax.lax.top_k``'s order (the lower
+index first on a tie) is a stable descending sort, ``jnp.argsort`` a
+stable one, ``jnp.searchsorted`` the left side.  Its scatters become
+gathers: each capacity slot reads the token that fills it, and each token
+sums its k expert outputs in the reference's order (their sorted
+positions), so the card adds no atomics and two runs give the same bits.
+The expert products stay ``torch.einsum``, as the reference leaves them
+to XLA outside any kernel.
 """
 from __future__ import annotations
 
@@ -132,6 +143,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # GQA attention layer
 # ---------------------------------------------------------------------------
 
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` promoting a bfloat16 ``x`` against float32 ``w`` (frame
+    embeddings into a float32 copy), as each of the reference's products
+    promotes its operands."""
+    return x.to(torch.promote_types(x.dtype, w.dtype)) @ w
+
+
 class Attention(nn.Module):
     """``wq`` (d, Hq dh), ``wk``/``wv`` (d, Hkv dh), ``wo`` (Hq dh, d) and,
     with qk-norm, ``q_norm``/``k_norm`` (dh,) in float32."""
@@ -167,9 +185,9 @@ def attention_apply(params: Attention, x: torch.Tensor, cfg,
     """
     B, T, d = x.shape
     dh = cfg.head_dim
-    q = (x @ params.wq).reshape(B, T, cfg.n_heads, dh)
-    k = (x @ params.wk).reshape(B, T, cfg.n_kv_heads, dh)
-    v = (x @ params.wv).reshape(B, T, cfg.n_kv_heads, dh)
+    q = _matmul(x, params.wq).reshape(B, T, cfg.n_heads, dh)
+    k = _matmul(x, params.wk).reshape(B, T, cfg.n_kv_heads, dh)
+    v = _matmul(x, params.wv).reshape(B, T, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = rms_norm(q, params.q_norm)
         k = rms_norm(k, params.k_norm)
@@ -239,3 +257,176 @@ def mlp_apply(params: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
         h = F.gelu(x @ params.w_gate, approximate="tanh") * (x @ params.w_up)
         return h @ params.w_down
     return _act(cfg.act, x @ params.w_in) @ params.w_out
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, sort-based dispatch)
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """``router`` (d, E) in float32; ``w_gate``/``w_up`` (E, d, fe) and
+    ``w_down`` (E, fe, d)."""
+
+    def __init__(self, router, w_gate, w_up, w_down):
+        super().__init__()
+        self.router, self.w_gate, self.w_up, self.w_down = (
+            _param(router), _param(w_gate), _param(w_up), _param(w_down))
+
+
+def init_moe(generator: torch.Generator, cfg) -> MoE:
+    """The router as ``dense_init`` in float32; every expert weight,
+    ``w_down`` included, ``normal * d_model ** -0.5`` in bf16."""
+    d, m = cfg.d_model, cfg.moe
+    e, fe = m.num_experts, m.d_expert
+    scale = (1.0 / d) ** 0.5
+
+    def experts(d_in, d_out):
+        w = torch.randn((e, d_in, d_out), generator=generator,
+                        device=generator.device)
+        return (w * scale).to(DEFAULT_DTYPE)
+
+    return MoE(dense_init(generator, d, e, dtype=torch.float32),
+               experts(d, fe), experts(d, fe), experts(fe, d))
+
+
+def _expert_ffn(params: MoE, xb: torch.Tensor, act: str) -> torch.Tensor:
+    """xb: (..., E, C, d) grouped expert inputs -> same-shaped outputs."""
+    gate = torch.einsum("...ecd,edf->...ecf", xb, params.w_gate)
+    up = torch.einsum("...ecd,edf->...ecf", xb, params.w_up)
+    if act == "swiglu":
+        h = F.silu(gate) * up
+    elif act == "geglu":
+        h = F.gelu(gate, approximate="tanh") * up
+    else:
+        h = _act(act, gate) * up
+    return torch.einsum("...ecf,efd->...ecd", h, params.w_down)
+
+
+# Module-level capacity knob, as the reference's.
+MOE_OPTIONS = {"capacity_factor": 1.25}
+
+
+def set_moe_capacity_factor(cf: float) -> None:
+    MOE_OPTIONS["capacity_factor"] = cf
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest in descending
+    order, the lower index first on a tie."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacity(tokens: int, cfg, capacity_factor: float) -> int:
+    """Slots per expert in a group of ``tokens`` tokens."""
+    m = cfg.moe
+    return max(int(tokens * m.top_k / m.num_experts * capacity_factor
+                   + 0.999), 1)
+
+
+def moe_route(logits: torch.Tensor, k: int, capacity: int) -> Dict:
+    """The reference's routing of groups of tokens from their router
+    logits (G, T, E): each token's top-k experts and renormalized gates,
+    its (token, k) entries stably sorted by expert, each entry's position
+    in its expert's slot list, and whether it fits the ``capacity``.
+
+    Returns ``expert_idx`` (G, T, k); ``sort_idx`` (each sorted entry's
+    flat index, token * k + j), ``sorted_expert``, ``sorted_token``,
+    ``sorted_gate``, ``keep`` and ``dest`` (expert * capacity + slot) over
+    the G x T k sorted entries; ``starts`` and ``counts`` (G, E), each
+    expert's first sorted entry and its number of entries.
+    """
+    G, T, E = logits.shape
+    probs = torch.softmax(logits, dim=-1)
+    gate, expert_idx = _top_k(probs, k)                       # (G, T, k)
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    flat_expert = expert_idx.reshape(G, T * k)
+    sort_idx = torch.argsort(flat_expert, dim=-1, stable=True)
+    sorted_expert = torch.gather(flat_expert, 1, sort_idx)
+    experts = torch.arange(E, device=logits.device).expand(G, E).contiguous()
+    starts = torch.searchsorted(sorted_expert, experts)
+    ends = torch.searchsorted(sorted_expert, experts, right=True)
+    pos = torch.arange(T * k, device=logits.device) - torch.gather(
+        starts, 1, sorted_expert)
+    return {"expert_idx": expert_idx, "sort_idx": sort_idx,
+            "sorted_expert": sorted_expert,
+            "sorted_token": torch.div(sort_idx, k, rounding_mode="floor"),
+            "sorted_gate": torch.gather(gate.reshape(G, T * k), 1,
+                                        sort_idx),
+            "keep": pos < capacity,
+            "dest": sorted_expert * capacity + torch.clamp_max(
+                pos, capacity - 1),
+            "starts": starts, "counts": ends - starts}
+
+
+def _moe_groups(params: MoE, x: torch.Tensor, cfg,
+                capacity_factor: float) -> torch.Tensor:
+    """Sort-based dispatch within each group of x (G, T, d): the capacity
+    buffer (G, E, C, d), the expert FFNs, and each token's k gated expert
+    outputs summed in sorted order."""
+    m = cfg.moe
+    G, T, d = x.shape
+    E, k = m.num_experts, m.top_k
+    C = capacity(T, cfg, capacity_factor)
+    r = moe_route(x.float() @ params.router.float(), k, C)
+    # Slot (e, c) holds sorted entry starts[e] + c while c < counts[e]
+    # (then it also fits the capacity); the other slots stay 0.
+    slot = torch.arange(C, device=x.device)
+    entry = (r["starts"][:, :, None] + slot).reshape(G, E * C)
+    filled = (slot < r["counts"][:, :, None]).reshape(G, E * C)
+    token = torch.gather(r["sorted_token"], 1,
+                         torch.clamp_max(entry, T * k - 1))
+    gathered = torch.gather(x, 1, token[..., None].expand(G, E * C, d))
+    buf = torch.where(filled[..., None], gathered,
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    out_buf = _expert_ffn(params, buf.reshape(G, E, C, d), cfg.act)
+    back = torch.gather(out_buf.reshape(G, E * C, d), 1,
+                        r["dest"][..., None].expand(G, T * k, d))
+    back = back * (r["sorted_gate"] * r["keep"]).to(x.dtype)[..., None]
+    # Each token's k sorted positions, ascending: the reference's
+    # scatter-add adds them in this order.
+    order = torch.empty_like(r["sort_idx"]).scatter_(
+        1, r["sort_idx"], torch.arange(T * k, device=x.device).expand(G, -1))
+    order = torch.sort(order.reshape(G, T, k), dim=-1).values
+    parts = torch.gather(back, 1, order.reshape(G, T * k, 1).expand(
+        G, T * k, d)).reshape(G, T, k, d)
+    out = torch.zeros((G, T, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        out = out + parts[:, :, j]
+    return out
+
+
+def moe_apply(params: MoE, x: torch.Tensor, cfg,
+              capacity_factor: Optional[float] = None) -> torch.Tensor:
+    """Top-k MoE with per-sequence sort-based dispatch.
+
+    Tokens are grouped by batch row, placed in a capacity-bounded
+    (B, E, C, d) buffer, pushed through the expert FFNs, and combined
+    with renormalized top-k gates.  Overflowing tokens are dropped (GShard
+    convention).  Decode (T == 1) dispatches the whole batch as one group
+    (:func:`_moe_flat`), so C = B k / E cf.
+    """
+    B, T, d = x.shape
+    if capacity_factor is None:
+        capacity_factor = MOE_OPTIONS["capacity_factor"]
+    if T == 1:
+        return _moe_flat(params, x[:, 0], cfg, capacity_factor)[:, None]
+    return _moe_groups(params, x, cfg, capacity_factor)
+
+
+def _moe_flat(params: MoE, x: torch.Tensor, cfg,
+              capacity_factor: float) -> torch.Tensor:
+    """Single-group dispatch over the flat (N, d) token batch (decode)."""
+    return _moe_groups(params, x[None], cfg, capacity_factor)[0]
+
+
+def moe_aux_loss(params: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss."""
+    m = cfg.moe
+    probs = torch.softmax(x.float() @ params.router.float(), dim=-1)
+    _, expert_idx = _top_k(probs, m.top_k)
+    counts = torch.bincount(expert_idx.reshape(-1),
+                            minlength=m.num_experts).float()
+    frac_tokens = counts / torch.clamp_min(counts.sum(), 1.0)
+    frac_probs = probs.mean(dim=(0, 1))
+    return m.num_experts * torch.sum(frac_tokens * frac_probs)

@@ -1,13 +1,17 @@
-"""Decoder-only transformer: the dense family, token input.
+"""Decoder-only transformer covering the dense / MoE / VLM / audio
+families.
 
-The counterpart of ``repro.models.transformer`` for ``family == "dense"``:
-GQA attention with optional qk-norm, RoPE full/half/none, a SwiGLU /
-GeGLU / squared-ReLU / GELU MLP, and a KV-cache prefill / decode.  The
-parameters are a :class:`Transformer` module whose layers are a
+The counterpart of ``repro.models.transformer``: GQA attention with
+optional qk-norm, RoPE full/half/none, a SwiGLU / GeGLU / squared-ReLU /
+GELU MLP or a top-k MoE, and three input streams: token embeddings, the
+audio stub frontend's frame embeddings (``batch["embeds"]`` (B, T, d)),
+and the VLM's patch embeddings (B, prefix_len, d) followed by text tokens,
+the prefix attended bidirectionally (prefix-LM).  The parameters are a
+:class:`Transformer` module whose layers are a
 :class:`torch.nn.ModuleList` (the reference stacks them on axis 0 and
 scans; here a Python loop walks them).  The cache is
 ``{"k", "v": (L, B, S, Hkv, dh), "index": int}``; a decode step writes the
-new k/v into it in place.  MoE, VLM (prefix-LM) and audio inputs raise
+new k/v into it in place.  The SSM and hybrid families raise
 ``NotImplementedError`` naming the slice that ports them.
 
 Parameters are created with ``requires_grad=False``, so serving builds no
@@ -27,19 +31,30 @@ from repro_torch.configs.base import LATER_FAMILIES
 from repro_torch.models import layers as L
 
 
+FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
 def check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.moe is not None or cfg.embed_input:
-        family = "moe" if cfg.moe is not None else cfg.family
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {family} family is not ported yet; it comes "
-            f"with {LATER_FAMILIES.get(family, 'a later slice')}")
+            f"{cfg.name}: the {cfg.family} family is not ported yet; it "
+            f"comes with {LATER_FAMILIES.get(cfg.family, 'a later slice')}")
 
 
 class Block(nn.Module):
-    def __init__(self, attn: L.Attention, mlp: L.MLP, ln1: torch.Tensor,
+    """``attn``, ``ln1``, ``ln2`` and the feed-forward part: ``mlp`` (an
+    :class:`~repro_torch.models.layers.MLP`) or ``moe`` (a
+    :class:`~repro_torch.models.layers.MoE`); the other is None."""
+
+    def __init__(self, attn: L.Attention, ffn, ln1: torch.Tensor,
                  ln2: torch.Tensor):
         super().__init__()
-        self.attn, self.mlp = attn, mlp
+        self.attn = attn
+        self.mlp = self.moe = None
+        if isinstance(ffn, L.MoE):
+            self.moe = ffn
+        else:
+            self.mlp = ffn
         self.ln1 = nn.Parameter(ln1, requires_grad=False)
         self.ln2 = nn.Parameter(ln2, requires_grad=False)
 
@@ -65,15 +80,18 @@ def trainable(params: nn.Module) -> nn.Module:
 
 def init_layer(generator: torch.Generator, cfg) -> Block:
     dev = generator.device
-    return Block(L.init_attention(generator, cfg), L.init_mlp(generator, cfg),
-                 L.init_rms_norm(cfg.d_model, dev),
+    attn = L.init_attention(generator, cfg)
+    ffn = (L.init_moe(generator, cfg) if cfg.moe is not None
+           else L.init_mlp(generator, cfg))
+    return Block(attn, ffn, L.init_rms_norm(cfg.d_model, dev),
                  L.init_rms_norm(cfg.d_model, dev))
 
 
 def init_params(generator: torch.Generator, cfg) -> Transformer:
     """Random weights drawn from ``generator`` on its device: embed
-    ``normal * 0.02``, dense ``normal * d_in ** -0.5``, both bf16; norms
-    float32 zeros."""
+    ``normal * 0.02``, dense ``normal * d_in ** -0.5``, experts ``normal *
+    d_model ** -0.5``, all bf16 but the float32 router; norms float32
+    zeros."""
     check_family(cfg)
     embed = (torch.randn((cfg.vocab, cfg.d_model), generator=generator,
                          device=generator.device) * 0.02).to(L.DEFAULT_DTYPE)
@@ -84,25 +102,53 @@ def init_params(generator: torch.Generator, cfg) -> Transformer:
 
 
 def _layer_apply(block: Block, x: torch.Tensor, cfg,
-                 positions: torch.Tensor, cache: Optional[Dict] = None
+                 positions: torch.Tensor, prefix_len: int = 0,
+                 cache: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, Dict]:
     h, new_cache = L.attention_apply(block.attn, L.rms_norm(x, block.ln1),
                                      cfg, positions, causal=True,
-                                     cache=cache)
+                                     prefix_len=prefix_len, cache=cache)
     x = x + h
-    x = x + L.mlp_apply(block.mlp, L.rms_norm(x, block.ln2), cfg)
+    h2 = L.rms_norm(x, block.ln2)
+    if cfg.moe is not None:
+        x = x + L.moe_apply(block.moe, h2, cfg)
+    else:
+        x = x + L.mlp_apply(block.mlp, h2, cfg)
     return x, new_cache
 
 
-def _embed_input(params: Transformer, cfg, batch: Dict) -> torch.Tensor:
-    check_family(cfg)
-    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
+def _gather_embed(params: Transformer, tokens) -> torch.Tensor:
+    tokens = torch.as_tensor(tokens, device=params.embed.device)
     return params.embed[tokens.long()]
 
 
-def _block_out(block: Block, x: torch.Tensor, cfg,
-               positions: torch.Tensor) -> torch.Tensor:
-    return _layer_apply(block, x, cfg, positions)[0]
+def _embeds(params: Transformer, batch: Dict) -> torch.Tensor:
+    """The stub frontend's embeddings, rounded to bf16 as the reference
+    casts them."""
+    return torch.as_tensor(batch["embeds"], device=params.embed.device).to(
+        L.DEFAULT_DTYPE)
+
+
+def _embed_input(params: Transformer, cfg, batch: Dict) -> torch.Tensor:
+    """The input activation stream of any input modality."""
+    check_family(cfg)
+    if cfg.family == "audio":
+        return _embeds(params, batch)
+    tok_emb = _gather_embed(params, batch["tokens"])
+    if cfg.family == "vlm":
+        emb = _embeds(params, batch)
+        dt = torch.promote_types(emb.dtype, tok_emb.dtype)
+        return torch.cat([emb.to(dt), tok_emb.to(dt)], dim=1)
+    return tok_emb
+
+
+def _prefix_len(cfg) -> int:
+    return cfg.prefix_len if cfg.family == "vlm" else 0
+
+
+def _block_out(block: Block, x: torch.Tensor, cfg, positions: torch.Tensor,
+               prefix_len: int) -> torch.Tensor:
+    return _layer_apply(block, x, cfg, positions, prefix_len)[0]
 
 
 def hidden(params: Transformer, cfg, batch: Dict,
@@ -112,13 +158,14 @@ def hidden(params: Transformer, cfg, batch: Dict,
     the backward, keeping only the blocks' inputs."""
     x = _embed_input(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    prefix_len = _prefix_len(cfg)
     remat = remat and torch.is_grad_enabled()
     for block in params.layers:
         if remat:
-            x = checkpoint(_block_out, block, x, cfg, positions,
+            x = checkpoint(_block_out, block, x, cfg, positions, prefix_len,
                            use_reentrant=False)
         else:
-            x = _block_out(block, x, cfg, positions)
+            x = _block_out(block, x, cfg, positions, prefix_len)
     return L.rms_norm(x, params.final_norm)
 
 
@@ -136,11 +183,14 @@ def prefill(params: Transformer, cfg, batch: Dict,
     B, T = x.shape[0], x.shape[1]
     S = max(max_len or T, T)
     positions = torch.arange(T, device=x.device)
+    prefix_len = _prefix_len(cfg)
     shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
-    ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    # k's dtype: a bf16 frame stream against float32 weights gives float32.
+    dtype = torch.promote_types(x.dtype, params.layers[0].attn.wk.dtype)
+    ks = torch.zeros(shape, dtype=dtype, device=x.device)
     vs = torch.zeros_like(ks)
     for i, block in enumerate(params.layers):
-        x, kv = _layer_apply(block, x, cfg, positions)
+        x, kv = _layer_apply(block, x, cfg, positions, prefix_len)
         ks[i, :, :T] = kv["k"]
         vs[i, :, :T] = kv["v"]
     cache = {"k": ks, "v": vs, "index": T}
@@ -152,13 +202,16 @@ def decode_step(params: Transformer, cfg, batch: Dict, cache: Dict
                 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode against the stacked-layer KV cache, which is
     updated in place; returns logits (B, 1, V) and the cache with
-    ``index + 1``."""
-    x = _embed_input(params, cfg, batch)
+    ``index + 1``.  The audio family takes ``embeds`` (B, 1, d), the
+    others ``tokens`` (B, 1)."""
+    check_family(cfg)
+    x = (_embeds(params, batch) if cfg.family == "audio"
+         else _gather_embed(params, batch["tokens"]))
     idx = int(cache["index"])
     positions = torch.full((x.shape[0], 1), idx, dtype=torch.int64,
                            device=x.device)
     for i, block in enumerate(params.layers):
-        x, _ = _layer_apply(block, x, cfg, positions,
+        x, _ = _layer_apply(block, x, cfg, positions, prefix_len=0,
                             cache={"k": cache["k"][i], "v": cache["v"][i],
                                    "index": idx})
     x = L.rms_norm(x, params.final_norm)

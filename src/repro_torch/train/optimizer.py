@@ -8,6 +8,11 @@ parameters' names.  :func:`adamw_update` writes the new parameters and
 moments into the existing tensors (the reference's launcher donates its
 state to the step, so nothing else reads the old values), which keeps a
 full-width model's state resident once.
+
+Weight decay goes to the reference's matrices: its leaves of two or more
+dimensions, where every per-layer tensor counts with the layers' stacked
+axis (:func:`decays`), so the per-layer norm scales decay and the final
+norm does not.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch import convert
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +47,13 @@ def named(tree) -> Dict[str, torch.Tensor]:
     if isinstance(tree, Mapping):
         return dict(tree)
     raise TypeError(f"expected a module or a mapping, got {type(tree)}")
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """Whether the reference decays the parameter ``name``: its leaf, with
+    the layers stacked on axis 0, has two or more dimensions."""
+    stacked = convert.ref_path(name)[1] is not None
+    return p.dim() + stacked >= 2
 
 
 def state_dtype(cfg: OptimizerConfig) -> torch.dtype:
@@ -97,7 +111,7 @@ def adamw_update(params, grads, opt_state: Dict, cfg: OptimizerConfig
         mhat = m32 / bc1
         vhat = v32 / bc2
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.dim() >= 2:                                 # decay matrices only
+        if decays(name, p):                              # matrices only
             delta = delta + cfg.weight_decay * p.float()
         new_p = p.float() - lr * delta
         p.copy_(new_p.to(p.dtype))

@@ -56,8 +56,11 @@ def build_train_step(model: ModelBundle, opt_cfg: opt.OptimizerConfig,
     def value_and_grad(params, batch) -> Tuple[torch.Tensor, Dict]:
         names, leaves = zip(*params.named_parameters())
         loss = model.loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), dict(zip(names, grads))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # A parameter the loss does not read (the audio family's token
+        # embedding) has a zero gradient, as the reference's autodiff gives.
+        return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+                               for n, p, g in zip(names, leaves, grads)}
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         params = state["params"]

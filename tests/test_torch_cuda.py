@@ -828,6 +828,8 @@ def flash_operands(seed, b, t, s, hq, hkv, dh, dtype, device, head_pad=0):
     (1, 512, 512, 16, 8, 128, {"prefix_len": 200}, 0),
     (1, 256, 256, 32, 4, 256, {}, 0),
     (1, 300, 300, 2, 2, 256, {}, 0),
+    (4, 2048, 2048, 8, 1, 256, {"prefix_len": 256}, 0),
+    (4, 1024, 1024, 32, 32, 64, {}, 0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, b, t, s, hq, hkv,
                                               dh, kw, pad, dtype, route):
@@ -1690,6 +1692,7 @@ FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max |g|
     (1, 130, 160, 6, 2, 192, {"prefix_len": 90, "q_offset": 30}, 2),
     (1, 200, 200, 8, 1, 256, {}, 0),
     (1, 300, 300, 4, 2, 128, {"prefix_len": 100}, 0),
+    (2, 512, 512, 8, 1, 256, {"prefix_len": 256}, 0),
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, t, s, hq,
                                                   hkv, dh, kw, pad, dtype,
@@ -1753,3 +1756,121 @@ def test_smoke_train_step_on_the_card_equals_the_cpu(cuda_device):
             assert fa.flash_attention_bwd.launches - bwd == 2 * cfg.n_layers
     assert losses[0] == pytest.approx(losses[2], rel=1e-5)
     assert losses[1] == pytest.approx(losses[3], rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The VLM, audio and MoE families
+# ---------------------------------------------------------------------------
+
+FAMILY_SMOKE = ["paligemma-3b", "musicgen-large", "moonshot-v1-16b-a3b",
+                "phi3.5-moe-42b-a6.6b"]
+
+
+def family_batch(cfg, rng, b=2, t=24):
+    batch = {}
+    if cfg.embed_input:
+        n = cfg.prefix_len if cfg.family == "vlm" else t
+        batch["embeds"] = rng.standard_normal((b, n, cfg.d_model),
+                                              dtype=np.float32)
+    if cfg.family != "audio":
+        n = t - cfg.prefix_len if cfg.family == "vlm" else t
+        batch["tokens"] = rng.integers(0, cfg.vocab, (b, n))
+    return batch
+
+
+@pytest.mark.parametrize("arch", FAMILY_SMOKE)
+def test_family_smoke_on_the_card_equals_the_cpu(cuda_device, arch):
+    """A family's smoke config in float32 (TF32 off) from the same
+    weights: forward logits, a prefill and 6 greedy decode steps (tokens
+    or codes, the audio family fed seeded frames), the MoE's routes at
+    every call, and one train step's loss, card against CPU; the card's
+    prefills launch the flash kernel."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import build_model, layers, transformer
+    from repro_torch.train import (OptimizerConfig, build_train_step,
+                                   init_opt_state)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch, smoke=True)
+    weights = build_model(cfg, "cpu").init_params(
+        torch.Generator().manual_seed(0)).float()
+    rng = np.random.default_rng(1)
+    batch = family_batch(cfg, rng)
+    frames = rng.standard_normal((6, 2, 1, cfg.d_model), dtype=np.float32)
+    targets = rng.integers(0, cfg.vocab, (2, 24))
+    inner = layers.moe_route
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        routes = []
+
+        def record(logits, k, capacity):
+            r = inner(logits, k, capacity)
+            routes.append((r["expert_idx"].cpu(), r["keep"].cpu()))
+            return r
+        m = build_model(cfg, dev)
+        p = copy.deepcopy(weights).to(dev)
+        before = fa.flash_attention.launches
+        layers.moe_route = record
+        try:
+            with torch.inference_mode():
+                logits = m.forward(p, batch).cpu()
+                step, cache = m.prefill(p, batch, max_len=30)
+                toks = []
+                for i in range(6):
+                    tok = step[:, -1].argmax(-1)[:, None]
+                    toks.append(tok.cpu())
+                    step, cache = m.decode_step(
+                        p, {"embeds": frames[i]} if cfg.family == "audio"
+                        else {"tokens": tok}, cache)
+        finally:
+            layers.moe_route = inner
+        launches = fa.flash_attention.launches - before
+        params = transformer.trainable(p)
+        opt_cfg = OptimizerConfig()
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        _, metrics = build_train_step(m, opt_cfg)(
+            state, dict(batch, targets=targets))
+        out[dev.type] = (logits, torch.cat(toks, 1), routes,
+                         float(metrics["loss"]), launches)
+    host, card = out["cpu"], out["cuda"]
+    torch.testing.assert_close(card[0], host[0], atol=1e-4, rtol=1e-4)
+    assert torch.equal(card[1], host[1])
+    assert len(card[2]) == len(host[2]) == (
+        0 if cfg.moe is None else 2 * cfg.n_layers + 6 * cfg.n_layers)
+    for a, b in zip(card[2], host[2]):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert card[3] == pytest.approx(host[3], rel=1e-5)
+    assert card[4] == 2 * cfg.n_layers and host[4] == 0
+
+
+def test_moe_combine_gives_the_same_bits_twice_on_the_card(cuda_device):
+    """moonshot's expert layout at a prefill's shape with heavy capacity
+    drops, in bf16 and float32: two calls give the same bits, and the
+    float32 output is the CPU's within rounding."""
+    import dataclasses
+    from repro_torch.configs import MoEConfig, get_arch
+    from repro_torch.models import layers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b", smoke=True),
+                              d_model=256, moe=MoEConfig(64, 6, 128))
+    gen = torch.Generator().manual_seed(3)
+    moe = layers.init_moe(gen, cfg).float()
+    x = torch.randn((4, 512, 256), generator=gen)
+    x += 2.0 * moe.router[:, :6].sum(-1) / moe.router[:, :6].sum(-1).norm()
+    with torch.no_grad():
+        want = layers.moe_apply(moe, x, cfg)
+        for dtype in (torch.float32, torch.bfloat16):
+            m = copy.deepcopy(moe).to(cuda_device)
+            for name in ("w_gate", "w_up", "w_down"):
+                setattr(m, name, torch.nn.Parameter(
+                    getattr(m, name).to(dtype), requires_grad=False))
+            xd = x.to(cuda_device, dtype)
+            a = layers.moe_apply(m, xd, cfg)
+            b = layers.moe_apply(m, xd, cfg)
+            flat = layers.moe_apply(m, xd[:, :1], cfg)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b)
+            assert torch.equal(flat, layers.moe_apply(m, xd[:, :1], cfg))
+            if dtype == torch.float32:
+                torch.testing.assert_close(a.cpu(), want, atol=1e-4,
+                                           rtol=1e-4)

@@ -15,8 +15,8 @@ flip by ``2 lr`` on either side; ``eps`` makes the update continuous there.
 ``schedule`` is held within ``1e-7`` relative (float32 ``cos`` of two
 libraries); ``ef_int8_roundtrip``, the pipeline's batches and
 ``PipelineStats`` must be equal bit for bit.  Checkpoints cross packages
-bit for bit: each package restores the other's, and the port's leaf files
-are byte for byte ``repro``'s.
+bit for bit, for a dense and an MoE state: each package restores the
+other's, and the port's leaf files are byte for byte ``repro``'s.
 """
 import copy
 import dataclasses
@@ -449,23 +449,66 @@ def test_adamw_update_equals_the_reference(reference):
                                        atol=1e-9, err_msg=n)
 
 
+def test_weight_decay_reaches_what_the_reference_decays(reference):
+    """Zero gradients from nonzero weights: the update is the decay alone.
+    The reference decays leaves of two or more dimensions, the per-layer
+    norm scales among them (stacked on the layers' axis), not the final
+    norm; the port the same tensors by the same amount."""
+    jcfg, cfg, jm, jp, m = reference
+    rng = np.random.default_rng(12)
+    tree = jax.tree.map(lambda a: rng.normal(0, 0.1, a.shape).astype(
+        np.float32), jax.tree.map(np.asarray, jp))
+    zeros = jax.tree.map(np.zeros_like, tree)
+    opt_cfg = OptimizerConfig(warmup_steps=0)
+    jnew, _, _ = jax.jit(jopt.adamw_update, static_argnums=3)(
+        jax.tree.map(jnp.asarray, tree), jax.tree.map(jnp.asarray, zeros),
+        {"m": jax.tree.map(jnp.asarray, zeros),
+         "v": jax.tree.map(jnp.asarray, zeros), "step": jnp.int32(0)},
+        jopt.OptimizerConfig(warmup_steps=0))
+    state = convert.train_state({"params": tree, "opt": {
+        "m": zeros, "v": zeros, "step": np.int32(0)}}, cfg, device="cpu")
+    before = {n: a.copy() for n, a in flat(state["params"]).items()}
+    params, _, _ = adamw_update(state["params"], {
+        n: torch.zeros_like(t) for n, t in state["opt"]["m"].items()},
+        state["opt"], opt_cfg)
+    got, want = flat(params), port_names(jnew, cfg)
+    for n in want:
+        np.testing.assert_allclose(got[n], want[n], rtol=1e-7, atol=0,
+                                   err_msg=n)
+    assert not np.array_equal(got["layers.0.ln1"], before["layers.0.ln1"])
+    assert not np.array_equal(got["layers.1.attn.q_norm"],
+                              before["layers.1.attn.q_norm"])
+    assert np.array_equal(got["final_norm"], before["final_norm"])
+
+
+CROSSING = [ARCH, "moonshot-v1-16b-a3b"]     # a dense and an MoE state
+
+
 @pytest.fixture(scope="module")
 def reference_state():
-    """repro's train state at the smoke config with the EF residual, every
-    leaf redrawn from a numpy seed (so a misplaced leaf or layer shows) and
-    step 7, as numpy arrays."""
-    jm = jbuild_model(jget_arch(ARCH, smoke=True))
-    state = jloop.init_train_state(jm, jax.random.PRNGKey(0),
-                                   jopt.OptimizerConfig(),
-                                   jloop.TrainOptions(compress_grads=True))
-    rng = np.random.default_rng(8)
+    """arch -> repro's train state at that smoke config with the EF
+    residual, every leaf redrawn from a numpy seed (so a misplaced leaf or
+    layer shows) and step 7, as numpy arrays."""
+    states = {}
 
-    def redraw(a):
-        a = np.asarray(a)
-        if a.dtype == np.int32:
-            return np.asarray(7, dtype=np.int32)
-        return rng.standard_normal(a.shape, dtype=np.float32).astype(a.dtype)
-    return jax.tree.map(redraw, state)
+    def state_of(arch):
+        if arch not in states:
+            jm = jbuild_model(jget_arch(arch, smoke=True))
+            shapes = jax.eval_shape(
+                lambda key: jloop.init_train_state(
+                    jm, key, jopt.OptimizerConfig(),
+                    jloop.TrainOptions(compress_grads=True)),
+                jax.random.PRNGKey(0))
+            rng = np.random.default_rng(8)
+
+            def redraw(a):
+                if a.dtype == np.int32:
+                    return np.asarray(7, dtype=np.int32)
+                return rng.standard_normal(a.shape, dtype=np.float32).astype(
+                    a.dtype)
+            states[arch] = jax.tree.map(redraw, shapes)
+        return states[arch]
+    return state_of
 
 
 def without_ef(tree, ef):
@@ -478,15 +521,16 @@ def bits(a):
     return a.view(f"u{a.dtype.itemsize}")
 
 
+@pytest.mark.parametrize("arch", CROSSING)
 @pytest.mark.parametrize("ef", [False, True], ids=["plain", "ef_residual"])
 def test_checkpoint_saved_by_the_reference_restores_in_the_port(
-        reference_state, ef, tmp_path):
+        reference_state, ef, arch, tmp_path):
     """repro's checkpoint restored into a zeroed port state equals
     convert.train_state of the saved state, bit for bit, with the same
     dtypes, devices and requires_grad."""
-    tree = without_ef(reference_state, ef)
+    tree = without_ef(reference_state(arch), ef)
     jcheckpoint.save(tree, str(tmp_path), step=3)
-    cfg = get_arch(ARCH, smoke=True)
+    cfg = get_arch(arch, smoke=True)
     like = convert.train_state(jax.tree.map(np.zeros_like, tree), cfg,
                                device="cpu")
     got = checkpoint.restore(str(tmp_path), 3, like)
@@ -500,14 +544,15 @@ def test_checkpoint_saved_by_the_reference_restores_in_the_port(
     assert ("ef_residual" in got) == ef
 
 
+@pytest.mark.parametrize("arch", CROSSING)
 @pytest.mark.parametrize("ef", [False, True], ids=["plain", "ef_residual"])
 def test_checkpoint_saved_by_the_port_restores_in_the_reference(
-        reference_state, ef, tmp_path):
+        reference_state, ef, arch, tmp_path):
     """The port's checkpoint of convert.train_state(tree) has repro's
     leaves byte for byte and manifest fields, and repro's restore gives
     the tree back bit for bit."""
-    tree = without_ef(reference_state, ef)
-    cfg = get_arch(ARCH, smoke=True)
+    tree = without_ef(reference_state(arch), ef)
+    cfg = get_arch(arch, smoke=True)
     checkpoint.save(convert.train_state(tree, cfg, device="cpu"),
                     str(tmp_path / "port"), step=3)
     jcheckpoint.save(tree, str(tmp_path / "ref"), step=3)
