@@ -54,14 +54,16 @@ Phases, each printing JSON lines:
    prefill, ragged, smoke, non-causal with ``kv_valid_len``,
    ``prefix_len`` 96 and 200, ``q_offset`` 64, ``kv_valid_len`` 0, head
    dims 256 and 192, 32 query heads over 4, paligemma-3b's prefill (4,
-   2048, 8/1, 256, ``prefix_len`` 256) and musicgen-large's (4, 1024,
-   32/32, 64)), both of its routes in bfloat16 (tensor cores, timed as
+   2048, 8/1, 256, ``prefix_len`` 256), musicgen-large's (4, 1024,
+   32/32, 64) and zamba2-2.7b's (4, 2048, 32/32, 80)), both of its routes
+   in bfloat16 (tensor cores, timed as
    ``ms``, and the scalar one as ``earlier_design_ms``) and the scalar
    one in float32, also timing PyTorch's ``scaled_dot_product_attention``
    on the same tensors as ``library_ms`` (the port never calls it).  The
    flash backward kernel (``csrc/flash_attention_bwd.cu``) runs at
    qwen3-1.7b's training shape (4, 2048, 16/8, 128), paligemma-3b's (2,
-   512, 8/1, 256, ``prefix_len`` 256) and the forward's edge shapes, both
+   512, 8/1, 256, ``prefix_len`` 256), zamba2-2.7b's (4, 2048, 32/32, 80)
+   and the forward's edge shapes, both
    of its routes in bfloat16 (tensor cores, timed as ``ms``, and the
    scalar one as ``earlier_design_ms``) and the scalar one in float32:
    each gradient within 2e-2 (bf16) or 1e-4 (float32) x its max |grad| of
@@ -236,32 +238,39 @@ Phases, each printing JSON lines:
    28, every one on the tensor-core route, pruning), then one step under
    torch.profiler (the backward kernel's device ms and share of device
    time, the idle share).
-21. ``family_parity``: the VLM, audio and MoE families, card against CPU
-   in float32 (TF32 off): paligemma-3b, musicgen-large and
-   moonshot-v1-16b-a3b at full width cut to 2 layers, weights from the
-   port's init on a CPU generator in both copies (the CPU side runs in a
-   spawned two-thread process from the end of ``forecast_parity`` on, and
-   a thread here draws the card's copy); a prefill (paligemma 256 patch
-   embeddings and 32 tokens, musicgen 64 frames, moonshot 64 tokens; 2
-   rows) and 8 greedy decode steps (musicgen fed seeded frames): tokens
-   (codes) equal, logits within 1e-3 x max |logit|, the MoE's expert
-   choices and kept masks equal at every layer and call; paligemma's loss
-   and every gradient at (2, 512) (256 patch embeddings and 256 tokens)
-   within ``train_parity`` (a)'s limits, which runs the backward's prefix
-   path at dh 256 with one KV head, then a bf16 step of the same weights
-   on the tensor-core routes; each family smoke config's float32 train
-   step (loss, gradient norm, parameters).
-22. ``family_full``: three cells at full width and depth in bf16, weights
+21. ``family_parity``: the VLM, audio, MoE, SSM and hybrid families,
+   card against CPU in float32 (TF32 off): paligemma-3b, musicgen-large,
+   moonshot-v1-16b-a3b and rwkv6-3b at full width cut to 2 layers,
+   zamba2-2.7b cut to 12 (two groups, so the shared block runs twice with
+   two KV caches), weights from the port's init on a CPU generator in
+   both copies (the CPU side runs in a spawned two-thread process from the
+   end of ``forecast_parity`` on, and a thread here draws the card's
+   copy); a prefill (paligemma 256 patch embeddings and 32 tokens,
+   musicgen 64 frames, moonshot 64 tokens, rwkv6 160 (two WKV chunks and
+   a tail), zamba2 288 (an SSD chunk and a tail); 2 rows) and 8 greedy
+   decode steps (musicgen fed seeded frames): tokens (codes) equal, logits
+   within 1e-3 x max |logit|, the MoE's expert choices and kept masks
+   equal at every layer and call; the loss and every gradient of
+   paligemma at (2, 512) (256 patch embeddings and 256 tokens; the
+   backward's prefix path at dh 256 with one KV head) and of zamba2 at 6
+   layers and (1, 320) (the shared block at dh 80) within
+   ``train_parity`` (a)'s limits on the scalar routes, then a bf16 step of
+   the same weights on the tensor-core routes; each family smoke config's
+   float32 train step (loss, gradient norm, parameters).
+22. ``family_full``: five cells at full width and depth in bf16, weights
    drawn on the card from a seeded generator: ``paligemma-3b-serve`` (4
    requests of 256 seeded patch embeddings and 1,792 tokens, 32 greedy
    tokens), ``musicgen-large-serve`` (4 requests of 1,024 frame
-   embeddings, 64 decode steps fed seeded frames) and
-   ``moonshot-v1-16b-a3b-serve`` (``serve_full``'s slot loop: 4 slots, 8
-   requests of 2,048 tokens, 32 new tokens, with the tokens its capacity
-   drops per layer at prefill and decode); prefill tokens/s, seconds per
-   output token, peak memory, flash launches by route (all on the tensor
-   cores, the first and every 10th held against the plain version), and
-   one profiled prefill's idle share.
+   embeddings, 64 decode steps fed seeded frames), and through
+   ``serve_full``'s slot loop (4 slots, 8 requests of 2,048 tokens, 32 new
+   tokens) ``moonshot-v1-16b-a3b-serve`` (with the tokens its capacity
+   drops per layer at prefill and decode), ``rwkv6-3b-serve`` and
+   ``zamba2-2.7b-serve``; prefill tokens/s, seconds per output token, peak
+   memory, flash launches by route (all on the tensor cores, the first and
+   every 10th held against the plain version), one profiled prefill's
+   idle share and, for rwkv6 and zamba2, the recurrences' device time,
+   share of busy time and launches in a profiled prefill and in 4 decode
+   steps, with all kernel launches per decode step.
 
 Kernel launch counts are reset just before each main path and read just
 after it; every 50th (fleet) or 100th (single table, per-query scan or
@@ -2636,13 +2645,18 @@ FLASH_SHAPES = [  # (name, B, T, S, Hq, Hkv, dh, kwargs, head_pad)
     ("prefix_len 200", 1, 512, 512, 16, 8, 128, {"prefix_len": 200}, 0),
     ("g 8", 1, 256, 256, 32, 4, 128, {}, 0),
 ]
-#: The VLM's and audio family's prefills, drawn after FLASH_SHAPES (both
-#: dtypes) so that the earlier shapes' operands stay the same draws.
+#: The families' prefills: the VLM's, the audio family's and the hybrid's
+#: shared block (dh 80).
 FAMILY_FLASH_SHAPES = [
     ("paligemma-3b prefill", 4, 2048, 2048, 8, 1, 256, {"prefix_len": 256},
      0),
     ("musicgen-large prefill", 4, 1024, 1024, 32, 32, 64, {}, 0),
+    ("zamba2-2.7b prefill", 4, 2048, 2048, 32, 32, 80, {}, 0),
 ]
+#: The order operands are drawn in: each group in both dtypes, then the
+#: next, so that a row added later leaves every earlier row's operands the
+#: same draws.
+FLASH_DRAWS = (FLASH_SHAPES, FAMILY_FLASH_SHAPES[:2], FAMILY_FLASH_SHAPES[2:])
 #: The routes each dtype's cases are held and timed on; the first is the
 #: one the wrapper chooses for the main path's operands.
 FLASH_ROUTES = {"bfloat16": ("tensor_core", "scalar"), "float32": ("scalar",)}
@@ -2723,9 +2737,8 @@ def phase_flash_kernel(device) -> dict:
     stream = _backend.stream_handle(device)
     results = []                # the chosen route's rows
     max_err = 0.0               # over every route
-    for shapes, dtype in [(shapes, dtype) for shapes in (
-            FLASH_SHAPES, FAMILY_FLASH_SHAPES)
-            for dtype in (torch.bfloat16, torch.float32)]:
+    for shapes, dtype in [(shapes, dtype) for shapes in FLASH_DRAWS
+                          for dtype in (torch.bfloat16, torch.float32)]:
         dname = str(dtype).split(".")[1]
         tol = FLASH_TOL[dname]
         for name, b, t, s, hq, hkv, dh, kw, pad in shapes:
@@ -2970,27 +2983,57 @@ class FlashAudit:
         return got
 
 
-def profile_window(fn, focus: str = "") -> dict:
+def spanned(label: str, fn):
+    """``fn`` inside a ``torch.profiler.record_function(label)`` range."""
+    import functools
+    import torch
+
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+    return run
+
+
+def kernels_under(event) -> int:
+    """Kernels launched under a profiler CPU event and its children."""
+    return len(event.kernels) + sum(kernels_under(c)
+                                    for c in event.cpu_children)
+
+
+def profile_window(fn, focus: str = "", spans=None, steps: int = 0) -> dict:
     """Wall time of ``fn`` (ending in a synchronize) under torch.profiler,
     the device time of its kernels (one stream, so their sum is the busy
     time), the idle share and the kernels that take the most time; with
     ``focus``, the device time of the kernels whose name holds it and its
-    share of the busy time."""
+    share of the busy time.  ``spans`` ({label: (module, attribute)})
+    wraps those functions in ranges for the window and adds each one's
+    calls, device time, share of busy time and kernel launches, and every
+    kernel launch of the window (per step, over ``steps``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    spans = spans or {}
+    inner = {label: getattr(*where) for label, where in spans.items()}
+    for label, (module, attr) in spans.items():
+        setattr(module, attr, spanned(label, inner[label]))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for label, (module, attr) in spans.items():
+            setattr(module, attr, inner[label])
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        if us and str(getattr(e, "device_type", "")).endswith("CUDA"):
+        if (us and str(getattr(e, "device_type", "")).endswith("CUDA")
+                and e.key not in spans):     # not the spans' own ranges
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
@@ -3002,14 +3045,27 @@ def profile_window(fn, focus: str = "") -> dict:
         us = sum(r[0] for r in rows if focus in r[1])
         out.update({f"{focus}_ms": us / 1e3,
                     f"{focus}_share": us / 1e6 / busy if rows else None})
+    if spans:
+        out["kernel_launches"] = sum(r[2] for r in rows)
+        if steps:
+            out["launches_per_step"] = out["kernel_launches"] / steps
+        for label in spans:
+            events = [e for e in prof.events() if e.name == label
+                      and str(e.device_type).endswith("CPU")]
+            us = sum(e.device_time_total for e in events)
+            out.update({f"{label}_calls": len(events),
+                        f"{label}_ms": us / 1e3,
+                        f"{label}_share": us / 1e6 / busy if rows else None,
+                        f"{label}_launches": sum(kernels_under(e)
+                                                 for e in events)})
     return out
 
 
 def profile_serve(model, params, prompts, max_len: int, name: str,
-                  phase: str = "serve_full") -> None:
+                  phase: str = "serve_full", spans=None) -> None:
     """One prefill of a full slot batch and four decode steps at the end of
     the cache, each under torch.profiler (after the main path's counts are
-    read)."""
+    read); ``spans`` as profile_window's."""
     import numpy as np
     import torch
     from repro_torch import serve
@@ -3019,7 +3075,7 @@ def profile_serve(model, params, prompts, max_len: int, name: str,
 
     def prefill():
         out["cache"] = prefill_fn(params, {"tokens": tokens})[1]
-    pre = profile_window(prefill, focus="flash_attention")
+    pre = profile_window(prefill, focus="flash_attention", spans=spans)
     cache = out["cache"]
     cache["index"] = max_len - 5
     tok = tokens[:, :1]
@@ -3028,10 +3084,25 @@ def profile_serve(model, params, prompts, max_len: int, name: str,
         c = cache
         for _ in range(4):
             c = decode_fn(params, {"tokens": tok}, c)[1]
-    dec = profile_window(decode)
+    dec = profile_window(decode, spans=spans, steps=4)
     emit(phase, cell=name, profile="prefill (one slot batch)", **pre)
     emit(phase, cell=name, profile="4 decode steps at the cache's end",
          **dec)
+
+
+def cache_sizes(spec: dict) -> tuple:
+    """A cache_spec's bytes: (its KV caches, the rest but the index: the
+    SSM's or the hybrid's recurrent state)."""
+    import numpy as np
+
+    def size(entry):
+        if isinstance(entry, dict):
+            return sum(size(e) for e in entry.values())
+        shape, dtype = entry
+        return int(np.prod(shape)) * dtype.itemsize
+    return (sum(size(spec[n]) for n in ("k", "v") if n in spec),
+            sum(size(e) for n, e in spec.items()
+                if n not in ("k", "v", "index")))
 
 
 def cell_serve(device, slots: int = SERVE_SLOTS,
@@ -3045,7 +3116,9 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
     seeded generator, serving ``requests`` seeded prompts through the
     examples/serve_model.py slot loop; returns the flash launches.  Another
     ``arch`` serves the same way (an MoE's line adds the entries its
-    capacity dropped, per layer, at prefill and at decode)."""
+    capacity dropped, per layer, at prefill and at decode; an SSM's or a
+    hybrid's the bytes of its recurrent state, and its profiles the
+    recurrences' spans)."""
     import numpy as np
     import torch
     from repro_torch import serve
@@ -3066,8 +3139,7 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
     rng = np.random.default_rng(SERVE_SEED)
     prompts = [rng.integers(0, cfg.vocab, prompt_len)
                for _ in range(requests)]
-    spec = model.cache_spec(slots, max_len)["k"]
-    cache_bytes = 2 * int(np.prod(spec[0])) * spec[1].itemsize
+    cache_bytes, state_bytes = cache_sizes(model.cache_spec(slots, max_len))
     prefill_fn, decode_fn = serve.build_serve_fns(model, max_len)
     timing = {"prefill_s": 0.0, "decode_s": 0.0, "prompt_tokens": 0,
               "finite": True}
@@ -3107,6 +3179,8 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
     in_range = all(0 <= t < cfg.vocab for r in batcher.completed
                    for t in r.generated)
     moe = {} if drops is None else {"moe_capacity_drops": drops}
+    if state_bytes:
+        moe["recurrent_state_bytes"] = state_bytes
     emit(phase, cell=name, source=cfg.source,
          params=cfg.num_params(), weight_bytes=weight_bytes,
          init_seconds=init_seconds, slots=slots, requests=requests,
@@ -3127,12 +3201,14 @@ def cell_serve(device, slots: int = SERVE_SLOTS,
          logits_finite=timing["finite"], tokens_in_vocab=in_range,
          peak_bytes=torch.cuda.max_memory_allocated(device), **moe,
          card=card_line())
-    profile_serve(model, params, prompts[:slots], max_len, name, phase)
+    profile_serve(model, params, prompts[:slots], max_len, name, phase,
+                  spans=recurrences(cfg))
     if len(batcher.completed) != requests or generated != requests * \
             new_tokens:
         raise AssertionError(f"{name}: {len(batcher.completed)} requests "
                              f"and {generated} tokens completed")
-    if launches != cfg.n_layers * counts["prefills"] or launches <= 0:
+    calls = attention_calls(cfg)
+    if launches != calls * counts["prefills"] or (calls and launches <= 0):
         raise AssertionError(f"{name}: {launches} flash launches for "
                              f"{counts['prefills']} prefills")
     if routes["tensor_core"] != launches:
@@ -3170,10 +3246,14 @@ FLASH_BWD_SHAPES = [  # (name, B, T, S, Hq, Hkv, dh, kwargs, head_pad)
     ("dh 192 head-strided views", 1, 130, 130, 6, 2, 192, {}, 2),
     ("g 8", 1, 256, 256, 32, 4, 128, {}, 0),
 ]
-#: The VLM's training shape, drawn after FLASH_BWD_SHAPES (both dtypes).
+#: The VLM's and the hybrid's training shapes.
 FAMILY_FLASH_BWD_SHAPES = [
     ("paligemma-3b train", 2, 512, 512, 8, 1, 256, {"prefix_len": 256}, 0),
+    ("zamba2-2.7b train", 4, 2048, 2048, 32, 32, 80, {}, 0),
 ]
+#: Draw order, as FLASH_DRAWS'.
+FLASH_BWD_DRAWS = (FLASH_BWD_SHAPES, FAMILY_FLASH_BWD_SHAPES[:1],
+                   FAMILY_FLASH_BWD_SHAPES[1:])
 
 
 def flash_bwd_bound(b, t, s, hq, hkv, dh, kw, dtype, device) -> dict:
@@ -3232,9 +3312,8 @@ def phase_flash_bwd_kernel(device) -> dict:
     from repro_torch.kernels.flash_attention import ref
     rng = np.random.default_rng(5)
     results, max_err = [], 0.0
-    for shapes, dtype in [(shapes, dtype) for shapes in (
-            FLASH_BWD_SHAPES, FAMILY_FLASH_BWD_SHAPES)
-            for dtype in (torch.bfloat16, torch.float32)]:
+    for shapes, dtype in [(shapes, dtype) for shapes in FLASH_BWD_DRAWS
+                          for dtype in (torch.bfloat16, torch.float32)]:
         dname = str(dtype).split(".")[1]
         tol = FLASH_BWD_TOL[dname]
         for name, b, t, s, hq, hkv, dh, kw, pad in shapes:
@@ -3689,23 +3768,58 @@ def cell_train(device, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
 
 
 # ---------------------------------------------------------------------------
-# The VLM, audio and MoE families: card against CPU, then full-width cells
+# The VLM, audio, MoE, SSM and hybrid families: card against CPU, then
+# full-width cells
 # ---------------------------------------------------------------------------
 
 FAMILY_SEED = 2468
 #: family_parity's models at full width, cut in depth: (layers, batch,
-#: positions); paligemma's 288 are 256 patch embeddings and 32 tokens.
+#: positions); paligemma's 288 are 256 patch embeddings and 32 tokens;
+#: rwkv6's 160 two WKV chunks of 64 and a tail, zamba2's 288 an SSD chunk
+#: of 256 and a tail, its 12 layers two groups (two shared-block caches).
 FAMILY_PARITY = {"paligemma-3b": (2, 2, 288), "musicgen-large": (2, 2, 64),
-                 "moonshot-v1-16b-a3b": (2, 2, 64)}
+                 "moonshot-v1-16b-a3b": (2, 2, 64), "rwkv6-3b": (2, 2, 160),
+                 "zamba2-2.7b": (12, 2, 288)}
 FAMILY_STEPS = 8
-VLM_TRAIN = (2, 512)          # batch, positions: 256 patch embeddings + 256
+#: family_parity's float32 gradients: (layers, batch, positions);
+#: paligemma's 512 are 256 patch embeddings and 256 tokens; zamba2's 6
+#: layers one group, its 320 positions an SSD chunk and a tail.
+FAMILY_TRAIN = {"paligemma-3b": (2, 2, 512), "zamba2-2.7b": (6, 1, 320)}
 FAMILY_SMOKE = ("paligemma-3b", "musicgen-large", "moonshot-v1-16b-a3b",
-                "phi3.5-moe-42b-a6.6b")
+                "phi3.5-moe-42b-a6.6b", "rwkv6-3b", "zamba2-2.7b")
 MOE_ARCH = "moonshot-v1-16b-a3b"
-MOE_SLOTS, MOE_REQUESTS, MOE_PROMPT, MOE_NEW_TOKENS = 4, 8, 2048, 32
+#: serve_full's slot loop for family_full's token cells: the MoE, SSM and
+#: hybrid models; users serve long prompts, and the SSM's and hybrid's
+#: decode state does not grow with context (the hybrid's KV caches do).
+SLOT_ARCHS = (MOE_ARCH, "rwkv6-3b", "zamba2-2.7b")
+SLOTS, SLOT_REQUESTS, SLOT_PROMPT, SLOT_NEW_TOKENS = 4, 8, 2048, 32
 #: family_full's embedding-input cells: (requests, positions, new tokens).
 EMBED_CELLS = {"paligemma-3b": (4, 2048, 32),
                "musicgen-large": (4, 1024, 64)}
+
+
+def attention_calls(cfg) -> int:
+    """Attention layers one forward runs: none in RWKV-6, the hybrid's
+    shared block once a group, else one a layer."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def recurrences(cfg) -> dict:
+    """The recurrence functions of an SSM or hybrid model, by span label:
+    (module, attribute) for the chunked form (train, prefill) and the
+    per-step form (decode)."""
+    from repro_torch.models import mamba2, rwkv6
+    if cfg.family == "ssm":
+        return {"wkv_chunked": (rwkv6, "_wkv_chunked"),
+                "wkv_scan": (rwkv6, "_wkv_scan")}
+    if cfg.family == "hybrid":
+        return {"ssd_chunked": (mamba2, "_ssd_chunked"),
+                "ssd_scan": (mamba2, "_ssd_scan")}
+    return {}
 
 
 class RouteRecorder:
@@ -3780,11 +3894,22 @@ def family_inputs(cfg, batch: int, positions: int):
     return out, frames
 
 
-def family_serve_run(device, cfg, params, batch: int,
-                     positions: int) -> dict:
+def cache_to(cache, device):
+    """A decode cache's copy on ``device`` (nested dicts of tensors and an
+    int index)."""
+    if isinstance(cache, dict):
+        return {k: cache_to(v, device) for k, v in cache.items()}
+    return cache.to(device, copy=True) if hasattr(cache, "to") else cache
+
+
+def family_serve_run(device, cfg, params, batch: int, positions: int,
+                     record: bool = False, replay=None) -> dict:
     """A prefill and FAMILY_STEPS greedy decode steps (the audio family fed
     seeded frames): tokens (codes), each step's logits on the host, every
-    MoE call's routes, the flash launches and the seconds."""
+    MoE call's routes, the flash launches and the seconds.  ``record``
+    keeps a host copy of the cache before each decode step (``states``);
+    ``replay`` (another run's result with ``states``) also runs each step
+    from that run's cache and token, its logits as ``replayed``."""
     import torch
     from repro_torch import serve
     from repro_torch.models import build_model
@@ -3800,7 +3925,8 @@ def family_serve_run(device, cfg, params, batch: int,
         prefill_fn, decode_fn = serve.build_serve_fns(
             model, positions + FAMILY_STEPS)
         logits, cache = prefill_fn(params, inputs)
-        out_logits, toks = [logits.float().cpu()], []
+        out_logits, toks, states, replayed = [logits.float().cpu()], [], \
+            [], []
         for i in range(FAMILY_STEPS):
             tok = logits[:, -1].argmax(-1)[:, None]
             toks.append(tok.cpu())
@@ -3808,41 +3934,49 @@ def family_serve_run(device, cfg, params, batch: int,
                 recorder.kind = "decode"
             step = ({"embeds": frames[i]} if cfg.family == "audio"
                     else {"tokens": tok})
+            if record:
+                states.append(cache_to(cache, "cpu"))
+            if replay is not None:
+                replayed.append(decode_fn(
+                    params, {"tokens": replay["tokens"][:, i:i + 1]},
+                    cache_to(replay["states"][i], device))[0].float().cpu())
             logits, cache = decode_fn(params, step, cache)
             out_logits.append(logits.float().cpu())
     finally:
         drops = recorder.close() if recorder is not None else None
     fwd, _, routes, _ = flash_counts()
     return {"tokens": torch.cat(toks, 1), "logits": out_logits,
+            "states": states, "replayed": replayed,
             "routes": recorder.routes if recorder is not None else [],
             "drops": drops, "flash_launches": fwd, "flash_by_route": routes,
             "seconds": time.perf_counter() - t0}
 
 
-def vlm_train_batch(cfg) -> dict:
-    """VLM_TRAIN's batch: family_inputs' embeddings and tokens, and seeded
-    targets, -1 over the prefix."""
+def family_train_batch(cfg) -> dict:
+    """FAMILY_TRAIN's batch: family_inputs' embeddings and tokens, and
+    seeded targets, -1 over a VLM's prefix."""
     import numpy as np
-    batch, _ = family_inputs(cfg, *VLM_TRAIN)
+    shape = FAMILY_TRAIN[cfg.name][1:]
+    batch, _ = family_inputs(cfg, *shape)
     targets = np.random.default_rng(FAMILY_SEED + 1).integers(
-        0, cfg.vocab, VLM_TRAIN)
+        0, cfg.vocab, shape)
     targets[:, :cfg.prefix_len] = -1
     return dict(batch, targets=targets)
 
 
-def vlm_train_run(device, params) -> dict:
-    """paligemma's loss and every gradient (float32, on the host) at
-    VLM_TRAIN: 256 patch embeddings and 256 text tokens a row, the prefix's
-    targets ignored.  The token embedding's gradient is kept for the rows
-    the batch reads; ``embed_other_rows_zero`` says the others are 0."""
+def family_train_run(device, cfg, params) -> dict:
+    """The loss and every gradient (float32, on the host) at FAMILY_TRAIN's
+    batch (for paligemma 256 patch embeddings and 256 text tokens a row,
+    the prefix's targets ignored).  The token embedding's gradient is kept
+    for the rows the batch reads; ``embed_other_rows_zero`` says the others
+    are 0."""
     import numpy as np
     import torch
     from repro_torch.models import build_model, transformer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = family_cut("paligemma-3b", FAMILY_PARITY["paligemma-3b"][0])
     model = build_model(cfg, device)
-    batch = vlm_train_batch(cfg)
+    batch = family_train_batch(cfg)
     transformer.trainable(params)
     reset_flash_counts()
     t0 = time.perf_counter()
@@ -3870,8 +4004,8 @@ def vlm_train_run(device, params) -> dict:
 
 def family_parity_cpu(path: str) -> dict:
     """family_parity's CPU side in a spawned process on two threads: each
-    model's serving run, then paligemma's loss and gradients; the results
-    go to the torch.save file ``path``."""
+    model's serving run, then its loss and gradients where FAMILY_TRAIN
+    names it; the results go to the torch.save file ``path``."""
     import torch
     torch.set_num_threads(2)
     cpu = torch.device("cpu")
@@ -3879,9 +4013,13 @@ def family_parity_cpu(path: str) -> dict:
     for arch, (layers, batch, positions) in FAMILY_PARITY.items():
         cfg = family_cut(arch, layers)
         params = family_weights(cfg)
-        out[arch] = family_serve_run(cpu, cfg, params, batch, positions)
-        if arch == "paligemma-3b":
-            out["vlm_train"] = vlm_train_run(cpu, params)
+        out[arch] = family_serve_run(cpu, cfg, params, batch, positions,
+                                     record=cfg.family == "hybrid")
+        if arch in FAMILY_TRAIN:
+            cfg = family_cut(arch, FAMILY_TRAIN[arch][0])
+            if cfg.n_layers != layers:
+                params = family_weights(cfg)
+            out[f"{arch} train"] = family_train_run(cpu, cfg, params)
         del params
     torch.save(out, path)
     return {arch: r["seconds"] for arch, r in out.items()}
@@ -3909,6 +4047,10 @@ def start_family_parity_cpu():
     def draw():
         for arch, (layers, _, _) in FAMILY_PARITY.items():
             weights[arch] = family_weights(family_cut(arch, layers))
+            train_layers = FAMILY_TRAIN.get(arch, (layers,))[0]
+            if train_layers != layers:
+                weights[f"{arch} train"] = family_weights(
+                    family_cut(arch, train_layers))
     thread = threading.Thread(target=draw, daemon=True)
     thread.start()
 
@@ -3966,10 +4108,30 @@ def smoke_train_parity(device) -> None:
                 or worst > 2e-6):
             raise AssertionError(f"family_parity: {arch}'s smoke train step "
                                  f"differs card vs CPU: {row}")
-        if device.type == "cuda" and card[3] != (2 * cfg.n_layers,
-                                                 cfg.n_layers):
+        calls = attention_calls(cfg)
+        if device.type == "cuda" and card[3] != (2 * calls, calls):
             raise AssertionError(f"family_parity: {arch}'s smoke step made "
                                  f"{card[3]} flash launches")
+
+
+def as_init_dtypes(cfg, params) -> None:
+    """Casts each parameter, in place, to the dtype the port's init gives
+    it (read from the smoke config's init, whose names are the same but
+    for layer indices): bf16 matrices, float32 norms, lerps and the
+    hybrid's conv weights."""
+    import re
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    def key(name):
+        return re.sub(r"\.\d+\.", ".", name)
+    smoke = get_arch(cfg.name, smoke=True)
+    dtypes = {key(n): p.dtype for n, p in build_model(smoke, "cpu")
+              .init_params(torch.Generator().manual_seed(0))
+              .named_parameters()}
+    for n, p in params.named_parameters():
+        p.data = p.data.to(dtypes[key(n)])
 
 
 def phase_family_parity(device, host) -> None:
@@ -3977,11 +4139,12 @@ def phase_family_parity(device, host) -> None:
     (FAMILY_PARITY): each model's greedy tokens (codes) over a prefill and
     FAMILY_STEPS decode steps equal, every step's logits within 1e-3 x
     max |logit|, the MoE's expert choices and kept masks equal at every
-    layer; paligemma's loss and every gradient at VLM_TRAIN within
-    train_parity (a)'s limits (the backward's prefix path at dh 256 with
-    one KV head), and a bf16 train step of the same weights on the
-    tensor-core route; then each FAMILY_SMOKE config's train step.
-    ``host`` is start_family_parity_cpu's function."""
+    layer; for FAMILY_TRAIN's models the loss and every gradient within
+    train_parity (a)'s limits (paligemma: the backward's prefix path at dh
+    256 with one KV head; zamba2: the shared block at dh 80), and a bf16
+    train step of the same weights on the tensor-core route; then each
+    FAMILY_SMOKE config's train step.  ``host`` is
+    start_family_parity_cpu's function."""
     import torch
     from repro_torch.models import build_model, transformer
     from repro_torch.train import (OptimizerConfig, build_train_step,
@@ -3991,11 +4154,27 @@ def phase_family_parity(device, host) -> None:
     waited = time.perf_counter() - t0
     for arch, (layers, batch, positions) in FAMILY_PARITY.items():
         cfg = family_cut(arch, layers)
+        calls = attention_calls(cfg)
         params = weights.pop(arch).to(device)
-        card = family_serve_run(device, cfg, params, batch, positions)
         cpu = cpu_runs[arch]
-        rel = max(float((a - b).abs().max() / b.abs().max())
-                  for a, b in zip(card["logits"], cpu["logits"]))
+        # The hybrid's conv state is rounded to bf16 after every step (the
+        # reference's cast): a float32 value within rounding of the CPU's
+        # can round to the other bf16 neighbour, and the two chains part
+        # by more than rounding.  Each decode step is also run from the
+        # CPU's cache and token and held to 1e-3 there; the own chain to
+        # 1e-2.
+        hybrid = cfg.family == "hybrid"
+        card = family_serve_run(device, cfg, params, batch, positions,
+                                replay=cpu if hybrid else None)
+
+        def rel_err(got, want):
+            return max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip(got, want))
+        rel = rel_err(card["logits"], cpu["logits"])
+        same = {}
+        if hybrid:
+            same["max_rel_logit_err_same_state"] = rel_err(
+                card["logits"][:1] + card["replayed"], cpu["logits"])
         finite = all(bool(torch.isfinite(x).all()) for x in card["logits"])
         equal = torch.equal(card["tokens"], cpu["tokens"])
         routes_equal = len(card["routes"]) == len(cpu["routes"]) and all(
@@ -4004,52 +4183,59 @@ def phase_family_parity(device, host) -> None:
         emit("family_parity", model=f"{arch} full width, {layers} layers",
              batch=batch, positions=positions, steps=FAMILY_STEPS,
              dtype="float32", tokens_equal=equal, max_rel_logit_err=rel,
-             finite=finite, moe_calls=len(card["routes"]),
+             **same, finite=finite, moe_calls=len(card["routes"]),
              routes_equal=routes_equal, moe_drops=card["drops"],
              card_seconds=card["seconds"], cpu_seconds=cpu["seconds"],
              flash_launches_card=card["flash_launches"],
              flash_launches_by_route=card["flash_by_route"])
-        if not (equal and finite and rel <= 1e-3 and routes_equal):
+        close = (rel <= 1e-2 and same["max_rel_logit_err_same_state"]
+                 <= 1e-3) if hybrid else rel <= 1e-3
+        if not (equal and finite and close and routes_equal):
             raise AssertionError(f"family_parity: {arch} differs card vs "
-                                 f"CPU (tokens {equal}, logits {rel}, "
-                                 f"routes {routes_equal})")
-        if card["flash_launches"] != layers or (
+                                 f"CPU (tokens {equal}, logits {rel} "
+                                 f"{same}, routes {routes_equal})")
+        if card["flash_launches"] != calls or (
                 cfg.moe is not None and not card["routes"]):
             raise AssertionError(f"family_parity: {arch} made "
                                  f"{card['flash_launches']} flash launches "
                                  f"and {len(card['routes'])} MoE calls")
-        if arch != "paligemma-3b":
+        if arch not in FAMILY_TRAIN:
             del params
             release(device)
             continue
-        got, want = vlm_train_run(device, params), cpu_runs["vlm_train"]
+        if FAMILY_TRAIN[arch][0] != layers:
+            del params
+            release(device)
+            cfg = family_cut(arch, FAMILY_TRAIN[arch][0])
+            calls = attention_calls(cfg)
+            params = weights.pop(f"{arch} train").to(device)
+        got = family_train_run(device, cfg, params)
+        want = cpu_runs[f"{arch} train"]
         worst = 0.0
         for n, g in want["grads"].items():
             err = float((got["grads"][n] - g).abs().max())
             scale = float(g.abs().max())
             if not (err <= 1e-4 * scale or err == 0.0):
-                raise AssertionError(f"family_parity: paligemma's gradient "
+                raise AssertionError(f"family_parity: {arch}'s gradient "
                                      f"{n} differs card vs CPU by {err} "
                                      f"(max |g| {scale})")
             worst = max(worst, err / scale if scale else 0.0)
         loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
         fwd, bwd, routes, bwd_routes = got["counts"]
-        # The same weights in bf16 (each is bf16-exact; norms stay float32):
-        # one AdamW step through the tensor-core routes.
-        for p in params.parameters():
-            if p.dim() > 1:
-                p.data = p.data.to(torch.bfloat16)
+        # The same weights in their init dtypes (each is bf16-exact): one
+        # AdamW step through the tensor-core routes.
+        as_init_dtypes(cfg, params)
         model = build_model(cfg, device)
         opt_cfg = OptimizerConfig()
         transformer.trainable(params)
         state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
         reset_flash_counts()
         _, metrics = build_train_step(model, opt_cfg)(state,
-                                                      vlm_train_batch(cfg))
+                                                      family_train_batch(cfg))
         bf16_loss = float(metrics["loss"])
         bf16 = flash_counts()
-        emit("family_parity", part="paligemma-3b train, 2 layers",
-             tokens=list(VLM_TRAIN), prefix_len=cfg.prefix_len,
+        emit("family_parity", part=f"{arch} train, {cfg.n_layers} layers",
+             tokens=list(FAMILY_TRAIN[arch][1:]), prefix_len=cfg.prefix_len,
              dtype="float32", loss_card=got["loss"], loss_cpu=want["loss"],
              loss_rel_err=loss_rel, worst_grad_err_over_max=worst,
              embed_other_rows_zero=[got["embed_other_rows_zero"],
@@ -4064,16 +4250,16 @@ def phase_family_parity(device, host) -> None:
              bf16_step_flash_bwd_by_route=bf16[3])
         if loss_rel > 1e-5 or not (got["embed_other_rows_zero"]
                                    and want["embed_other_rows_zero"]):
-            raise AssertionError(f"family_parity: paligemma's loss differs "
+            raise AssertionError(f"family_parity: {arch}'s loss differs "
                                  f"card vs CPU ({loss_rel})")
-        if (fwd, bwd) != (2 * layers, layers) or bwd_routes["scalar"] != bwd:
-            raise AssertionError(f"family_parity: paligemma's float32 "
+        if (fwd, bwd) != (2 * calls, calls) or bwd_routes["scalar"] != bwd:
+            raise AssertionError(f"family_parity: {arch}'s float32 "
                                  f"gradients made {fwd} forward and {bwd} "
                                  f"backward ({bwd_routes}) launches")
         if not abs(bf16_loss - got["loss"]) <= 2e-2 * abs(got["loss"]) \
-                or bf16[:2] != (2 * layers, layers) \
-                or bf16[3]["tensor_core"] != layers:
-            raise AssertionError(f"family_parity: paligemma's bf16 step: "
+                or bf16[:2] != (2 * calls, calls) \
+                or bf16[3]["tensor_core"] != calls:
+            raise AssertionError(f"family_parity: {arch}'s bf16 step: "
                                  f"loss {bf16_loss}, launches {bf16}")
         del params, state, model, got, want
         release(device)
@@ -4181,18 +4367,23 @@ def cell_embed_serve(device, arch: str) -> int:
 
 
 def phase_family_full(device) -> dict:
-    """The three family cells, each alone on the card; returns each main
-    path's launch counts."""
+    """The five family cells, each alone on the card; returns each main
+    path's launch counts (none for rwkv6, which runs no kernel of the
+    port's)."""
+    from repro_torch.configs import get_arch
     runs = {}
     for arch in EMBED_CELLS:
         runs[f"{arch}-serve"] = {"flash_attention": cell_embed_serve(device,
                                                                      arch)}
         release(device)
-    runs[f"{MOE_ARCH}-serve"] = {"flash_attention": cell_serve(
-        device, MOE_SLOTS, MOE_REQUESTS, MOE_PROMPT, MOE_NEW_TOKENS,
-        MOE_PROMPT + 2 * MOE_NEW_TOKENS, arch=MOE_ARCH,
-        phase="family_full")}
-    release(device)
+    for arch in SLOT_ARCHS:
+        launches = cell_serve(device, SLOTS, SLOT_REQUESTS, SLOT_PROMPT,
+                              SLOT_NEW_TOKENS,
+                              SLOT_PROMPT + 2 * SLOT_NEW_TOKENS, arch=arch,
+                              phase="family_full")
+        runs[f"{arch}-serve"] = ({"flash_attention": launches}
+                                 if attention_calls(get_arch(arch)) else {})
+        release(device)
     return runs
 
 

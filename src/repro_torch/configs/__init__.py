@@ -1,9 +1,8 @@
-"""Architecture and shape configuration registry (dense, MoE, VLM and
-audio families)."""
-from repro_torch.configs.base import (LATER_ARCHS, LATER_FAMILIES, SHAPES,
-                                      ArchConfig, MoEConfig, ShapeConfig,
-                                      SSMConfig, get_arch, list_archs)
+"""Architecture and shape configuration registry: every family of the
+reference (dense, MoE, VLM, audio, SSM and hybrid)."""
+from repro_torch.configs.base import (SHAPES, ArchConfig, MoEConfig,
+                                      ShapeConfig, SSMConfig, get_arch,
+                                      list_archs)
 
-__all__ = ["LATER_ARCHS", "LATER_FAMILIES", "SHAPES", "ArchConfig",
-           "MoEConfig", "ShapeConfig", "SSMConfig", "get_arch",
-           "list_archs"]
+__all__ = ["SHAPES", "ArchConfig", "MoEConfig", "ShapeConfig", "SSMConfig",
+           "get_arch", "list_archs"]

@@ -5,9 +5,8 @@ counts and registry, so a configuration name means the same model in both
 packages.  Each architecture's module registers its published
 :class:`ArchConfig` and a reduced ``smoke`` variant for the CPU tests.
 
-The dense, MoE, VLM and audio families are registered.  The SSM and
-hybrid families are registered when their models are ported; until then
-:func:`get_arch` raises ``KeyError`` naming the slice that ports them.
+Every architecture of the reference is registered: the dense, MoE, VLM,
+audio, SSM (RWKV-6) and hybrid (Mamba-2 with shared attention) families.
 """
 from __future__ import annotations
 
@@ -133,14 +132,6 @@ SHAPES: Dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
-#: Model families not ported yet, with the slice that ports each.
-LATER_FAMILIES: Dict[str, str] = {
-    "ssm": "the SSM slice (RWKV-6)",
-    "hybrid": "the hybrid slice (Mamba-2 + shared attention)",
-}
-#: Architectures of ``repro`` not registered here yet, with their family.
-LATER_ARCHS: Dict[str, str] = {"rwkv6-3b": "ssm", "zamba2-2.7b": "hybrid"}
-
 _REGISTRY: Dict[str, ArchConfig] = {}
 _SMOKE_REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -155,10 +146,6 @@ def get_arch(name: str, smoke: bool = False) -> ArchConfig:
     _ensure_loaded()
     reg = _SMOKE_REGISTRY if smoke else _REGISTRY
     if name not in reg:
-        if name in LATER_ARCHS:
-            raise KeyError(f"arch '{name}' is not ported yet: it is "
-                           f"registered by "
-                           f"{LATER_FAMILIES[LATER_ARCHS[name]]}")
         raise KeyError(f"unknown arch '{name}'; have {sorted(reg)}")
     return reg[name]
 
@@ -180,4 +167,5 @@ def _ensure_loaded() -> None:
     from repro_torch.configs import (chatglm3_6b, minitron_4b,  # noqa: F401
                                      moonshot_v1_16b, musicgen_large,
                                      nemotron4_340b, paligemma_3b,
-                                     phi35_moe, qwen3_1p7b)
+                                     phi35_moe, qwen3_1p7b, rwkv6_3b,
+                                     zamba2_2p7b)

@@ -10,12 +10,13 @@ router in this package, on a given device (the card by default), from
 those arrays alone; ``repro_torch.core.layouts.Layout`` joins them into a
 layout.
 
-:func:`transformer_params` carries a transformer's parameter tree across
-the same way: nested dicts of numpy arrays in the reference's layout, and
-:func:`train_state` a whole train state (parameters, AdamW moments and
-step, and the error-feedback residual when present).  Both, and the
-checkpoint's on-disk format, place the port's parameter names through
-:func:`ref_path`.
+:func:`model_params` carries a model's parameter tree across the same
+way (:func:`transformer_params`, :func:`rwkv6_params`,
+:func:`hybrid_params` by family): nested dicts of numpy arrays in the
+reference's layout, and :func:`train_state` a whole train state
+(parameters, AdamW moments and step, and the error-feedback residual when
+present).  All of them, the optimizer's weight decay and the checkpoint's
+on-disk format place the port's parameter names through :func:`ref_path`.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from repro_torch.core import layouts, qdtree, zorder
 from repro_torch.kernels._backend import resolve_device, to_device
 from repro_torch.kernels.zorder import ref as zref
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba2, rwkv6, transformer
 
 Device = Union[None, str, torch.device]
 
@@ -86,14 +87,21 @@ def _weight(a, device: torch.device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+#: The reference's trees whose leaves stack the layers on axis 0: the
+#: transformer's and RWKV-6's ``layers``, the hybrid's ``mamba``.  The
+#: hybrid's ``shared_attn`` is one block, not stacked.
+STACKED = ("layers", "mamba")
+
+
 def ref_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
     """The reference's leaf path of the port's parameter ``name`` and the
-    index of its layer on that leaf's stacked axis 0 (None outside
-    ``layers``): ``layers.3.attn.wq`` is ``("layers", "attn", "wq")``, 3,
-    and ``layers.3.moe.router`` is ``("layers", "moe", "router")``, 3."""
+    index of its layer on that leaf's stacked axis 0 (None outside the
+    ``STACKED`` trees): ``layers.3.attn.wq`` is ``("layers", "attn",
+    "wq")``, 3, ``mamba.3.A_log`` is ``("mamba", "A_log")``, 3, and
+    ``shared_attn.ln1`` is ``("shared_attn", "ln1")``, None."""
     parts = tuple(name.split("."))
-    if parts[0] == "layers":
-        return ("layers",) + parts[2:], int(parts[1])
+    if parts[0] in STACKED:
+        return (parts[0],) + parts[2:], int(parts[1])
     return parts, None
 
 
@@ -140,27 +148,69 @@ def transformer_params(tree, cfg, device: Device = None,
     """
     dev = resolve_device(device)
     transformer.check_family(cfg)
-
-    def w(name):
-        return _weight(ref_leaf(tree, name), dev, dtype)
-
-    blocks = []
-    for i in range(cfg.n_layers):
-        at = f"layers.{i}.attn."
-        norms = ((w(at + "q_norm"), w(at + "k_norm")) if cfg.qk_norm
-                 else (None, None))
-        if cfg.moe is not None:
-            ffn = L.MoE(*(w(f"layers.{i}.moe.{k}")
-                          for k in ("router", "w_gate", "w_up", "w_down")))
-        else:
-            ffn = L.MLP(**{k: w(f"layers.{i}.mlp.{k}")
-                           for k in tree["layers"]["mlp"]})
-        blocks.append(transformer.Block(
-            L.Attention(*(w(at + k) for k in ("wq", "wk", "wv", "wo")),
-                        *norms),
-            ffn, w(f"layers.{i}.ln1"), w(f"layers.{i}.ln2")))
+    w = _reader(tree, dev, dtype)
+    blocks = [_block(w, f"layers.{i}.", cfg, tree["layers"])
+              for i in range(cfg.n_layers)]
     return transformer.Transformer(w("embed"), blocks, w("final_norm"),
                                    w("head"))
+
+
+def _reader(tree, device: torch.device, dtype):
+    """The port's parameter ``name`` read from ``tree``."""
+    def w(name):
+        return _weight(ref_leaf(tree, name), device, dtype)
+    return w
+
+
+def _block(w, at: str, cfg, leaves) -> transformer.Block:
+    """The transformer block whose parameters are named ``at`` + ...;
+    ``leaves`` is its part of the reference's tree (its MLP's names)."""
+    norms = ((w(at + "attn.q_norm"), w(at + "attn.k_norm")) if cfg.qk_norm
+             else (None, None))
+    if cfg.moe is not None:
+        ffn = L.MoE(*(w(at + "moe." + k)
+                      for k in ("router", "w_gate", "w_up", "w_down")))
+    else:
+        ffn = L.MLP(**{k: w(at + "mlp." + k) for k in leaves["mlp"]})
+    return transformer.Block(
+        L.Attention(*(w(at + "attn." + k) for k in ("wq", "wk", "wv", "wo")),
+                    *norms),
+        ffn, w(at + "ln1"), w(at + "ln2"))
+
+
+def rwkv6_params(tree, cfg, device: Device = None,
+                 dtype: Optional[torch.dtype] = None
+                 ) -> transformer.Transformer:
+    """The port's RWKV-6 model with the weights of ``tree``: ``embed``,
+    ``layers`` (every leaf of ``rwkv6.init_layer`` stacked on axis 0),
+    ``final_norm`` and ``head``."""
+    w = _reader(tree, resolve_device(device), dtype)
+    layers = [rwkv6.Layer(**{k: w(f"layers.{i}.{k}")
+                             for k in tree["layers"]})
+              for i in range(cfg.n_layers)]
+    return transformer.Transformer(w("embed"), layers, w("final_norm"),
+                                   w("head"))
+
+
+def hybrid_params(tree, cfg, device: Device = None,
+                  dtype: Optional[torch.dtype] = None) -> hybrid.Hybrid:
+    """The port's hybrid model with the weights of ``tree``: ``embed``,
+    ``mamba`` (every Mamba-2 leaf stacked on axis 0), ``shared_attn`` (one
+    transformer block, not stacked), ``final_norm`` and ``head``."""
+    w = _reader(tree, resolve_device(device), dtype)
+    mamba = [mamba2.Layer(**{k: w(f"mamba.{i}.{k}") for k in tree["mamba"]})
+             for i in range(cfg.n_layers)]
+    return hybrid.Hybrid(w("embed"), mamba,
+                         _block(w, "shared_attn.", cfg, tree["shared_attn"]),
+                         w("final_norm"), w("head"))
+
+
+def model_params(tree, cfg, device: Device = None,
+                 dtype: Optional[torch.dtype] = None):
+    """The port's model of ``cfg``'s family with the weights of ``tree``."""
+    build = {"ssm": rwkv6_params, "hybrid": hybrid_params}.get(
+        cfg.family, transformer_params)
+    return build(tree, cfg, device, dtype)
 
 
 def train_state(tree, cfg, device: Device = None,
@@ -173,7 +223,7 @@ def train_state(tree, cfg, device: Device = None,
     :func:`repro_torch.train.optimizer.init_opt_state` keys them."""
     dev = resolve_device(device)
     params = transformer.trainable(
-        transformer_params(tree["params"], cfg, dev, dtype))
+        model_params(tree["params"], cfg, dev, dtype))
     names = [n for n, _ in params.named_parameters()]
 
     def named(sub):

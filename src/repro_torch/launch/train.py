@@ -4,7 +4,9 @@ Runs a registered architecture (reduced ``--smoke`` configs on the CPU,
 full configs on the card) with the OREO-managed data pipeline, AdamW,
 per-layer remat, checkpoint/restart and metric logging, and writes
 ``train_summary.json`` into the checkpoint directory.  ``--device`` picks
-the device (the card by default); families not ported yet raise.
+the device (the card by default).  Every family runs: the transformer's,
+RWKV-6 (``--arch rwkv6-3b``) and the Mamba-2 hybrid (``--arch
+zamba2-2.7b``).
 
 Stub frontends (``cfg.embed_input``) take embeddings: each step's tokens
 become seeded (B, T, d_model) bf16 embeddings (:func:`stub_embeds`),

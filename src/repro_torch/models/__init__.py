@@ -1,7 +1,8 @@
 """Model zoo of the port: the decoder-only transformer (dense, MoE, VLM,
-audio)."""
-from repro_torch.models import factory, layers, losses, transformer
+audio), RWKV-6 (SSM) and the Mamba-2 hybrid with shared attention."""
+from repro_torch.models import (factory, hybrid, layers, losses, mamba2,
+                                rwkv6, transformer)
 from repro_torch.models.factory import ModelBundle, build_model
 
-__all__ = ["ModelBundle", "build_model", "factory", "layers", "losses",
-           "transformer"]
+__all__ = ["ModelBundle", "build_model", "factory", "hybrid", "layers",
+           "losses", "mamba2", "rwkv6", "transformer"]

@@ -4,9 +4,9 @@
 functions take the parameters explicitly, as ``repro.models.factory``'s
 do, so a serving loop reads the same in both packages.  The bundle runs on
 the card unless ``device="cpu"`` is given; without a card the default
-raises.  The dense, MoE, VLM and audio families are ported (one
-transformer); the SSM and hybrid families raise naming their slice, and
-``input_specs`` belongs to the launch slice.
+raises.  Every family is ported: the dense, MoE, VLM and audio families
+through ``transformer``, the SSM family through ``rwkv6`` and the hybrid
+through ``hybrid``; ``input_specs`` belongs to the launch slice.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._backend import resolve_device
-from repro_torch.models import losses, transformer
+from repro_torch.models import hybrid, losses, rwkv6, transformer
 
 
 @dataclasses.dataclass
@@ -32,12 +32,21 @@ class ModelBundle:
     cache_spec: Callable                   # (batch, max_len) -> shapes, dtypes
 
 
+def _module_for(cfg: ArchConfig):
+    if cfg.family in transformer.FAMILIES:
+        return transformer
+    if cfg.family == "ssm":
+        return rwkv6
+    if cfg.family == "hybrid":
+        return hybrid
+    raise ValueError(f"unknown family {cfg.family}")
+
+
 def build_model(cfg: ArchConfig,
                 device: Union[None, str, torch.device] = None
                 ) -> ModelBundle:
     dev = resolve_device(device)
-    transformer.check_family(cfg)
-    mod = transformer
+    mod = _module_for(cfg)
 
     def init_params(generator: torch.Generator):
         if torch.device(generator.device).type != dev.type:

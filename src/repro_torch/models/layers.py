@@ -78,6 +78,16 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class Weights(nn.Module):
+    """Named tensors held as parameters with grad off, in the order given:
+    the reference's dict of one layer's leaves."""
+
+    def __init__(self, **weights):
+        super().__init__()
+        for name, w in weights.items():
+            setattr(self, name, _param(w))
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -218,14 +228,9 @@ def attention_apply(params: Attention, x: torch.Tensor, cfg,
 GATED = ("swiglu", "geglu")
 
 
-class MLP(nn.Module):
+class MLP(Weights):
     """Gated (swiglu, geglu): ``w_gate``/``w_up`` (d, ff), ``w_down``
     (ff, d); otherwise ``w_in`` (d, ff), ``w_out`` (ff, d)."""
-
-    def __init__(self, **weights):
-        super().__init__()
-        for name, w in weights.items():
-            setattr(self, name, _param(w))
 
 
 def init_mlp(generator: torch.Generator, cfg,

@@ -11,8 +11,9 @@ the prefix attended bidirectionally (prefix-LM).  The parameters are a
 :class:`torch.nn.ModuleList` (the reference stacks them on axis 0 and
 scans; here a Python loop walks them).  The cache is
 ``{"k", "v": (L, B, S, Hkv, dh), "index": int}``; a decode step writes the
-new k/v into it in place.  The SSM and hybrid families raise
-``NotImplementedError`` naming the slice that ports them.
+new k/v into it in place.  The SSM and hybrid families have modules of
+their own (``rwkv6``, ``hybrid``); the hybrid's shared attention block is
+this module's :class:`Block`.
 
 Parameters are created with ``requires_grad=False``, so serving builds no
 graph; :func:`trainable` turns grad on for training.  :func:`hidden` runs
@@ -27,7 +28,6 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import LATER_FAMILIES
 from repro_torch.models import layers as L
 
 
@@ -36,9 +36,8 @@ FAMILIES = ("dense", "moe", "vlm", "audio")
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; it "
-            f"comes with {LATER_FAMILIES.get(cfg.family, 'a later slice')}")
+        raise ValueError(f"{cfg.name}: the {cfg.family} family is not a "
+                         f"transformer (those are {', '.join(FAMILIES)})")
 
 
 class Block(nn.Module):

@@ -830,6 +830,8 @@ def flash_operands(seed, b, t, s, hq, hkv, dh, dtype, device, head_pad=0):
     (1, 300, 300, 2, 2, 256, {}, 0),
     (4, 2048, 2048, 8, 1, 256, {"prefix_len": 256}, 0),
     (4, 1024, 1024, 32, 32, 64, {}, 0),
+    (4, 2048, 2048, 32, 32, 80, {}, 0),
+    (2, 200, 200, 4, 4, 80, {"prefix_len": 70}, 0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, b, t, s, hq, hkv,
                                               dh, kw, pad, dtype, route):
@@ -1693,6 +1695,9 @@ FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max |g|
     (1, 200, 200, 8, 1, 256, {}, 0),
     (1, 300, 300, 4, 2, 128, {"prefix_len": 100}, 0),
     (2, 512, 512, 8, 1, 256, {"prefix_len": 256}, 0),
+    (4, 2048, 2048, 32, 32, 80, {}, 0),
+    (2, 130, 130, 4, 4, 80, {}, 3),
+    (1, 300, 300, 4, 2, 80, {"prefix_len": 100}, 0),
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, t, s, hq,
                                                   hkv, dh, kw, pad, dtype,
@@ -1759,11 +1764,21 @@ def test_smoke_train_step_on_the_card_equals_the_cpu(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# The VLM, audio and MoE families
+# The VLM, audio, MoE, SSM and hybrid families
 # ---------------------------------------------------------------------------
 
 FAMILY_SMOKE = ["paligemma-3b", "musicgen-large", "moonshot-v1-16b-a3b",
-                "phi3.5-moe-42b-a6.6b"]
+                "phi3.5-moe-42b-a6.6b", "rwkv6-3b", "zamba2-2.7b"]
+
+
+def attention_calls(cfg) -> int:
+    """Attention layers a forward runs: none in RWKV-6, the hybrid's
+    shared block once a group, else one a layer."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
 
 
 def family_batch(cfg, rng, b=2, t=24):
@@ -1784,7 +1799,8 @@ def test_family_smoke_on_the_card_equals_the_cpu(cuda_device, arch):
     weights: forward logits, a prefill and 6 greedy decode steps (tokens
     or codes, the audio family fed seeded frames), the MoE's routes at
     every call, and one train step's loss, card against CPU; the card's
-    prefills launch the flash kernel."""
+    prefills launch the flash kernel once an attention layer (RWKV-6 has
+    none)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.models import build_model, layers, transformer
@@ -1833,14 +1849,21 @@ def test_family_smoke_on_the_card_equals_the_cpu(cuda_device, arch):
         out[dev.type] = (logits, torch.cat(toks, 1), routes,
                          float(metrics["loss"]), launches)
     host, card = out["cpu"], out["cuda"]
-    torch.testing.assert_close(card[0], host[0], atol=1e-4, rtol=1e-4)
+    if cfg.family == "ssm":
+        # RWKV-6's per-head group norm (16 channels, eps 1e-5) magnifies
+        # float32 rounding: its chunked and per-step forms of these weights
+        # part by 1.3e-4 on the CPU.  Held to 1e-4 x max |logit|.
+        err = float((card[0] - host[0]).abs().max())
+        assert err <= 1e-4 * float(host[0].abs().max())
+    else:
+        torch.testing.assert_close(card[0], host[0], atol=1e-4, rtol=1e-4)
     assert torch.equal(card[1], host[1])
     assert len(card[2]) == len(host[2]) == (
         0 if cfg.moe is None else 2 * cfg.n_layers + 6 * cfg.n_layers)
     for a, b in zip(card[2], host[2]):
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert card[3] == pytest.approx(host[3], rel=1e-5)
-    assert card[4] == 2 * cfg.n_layers and host[4] == 0
+    assert card[4] == 2 * attention_calls(cfg) and host[4] == 0
 
 
 def test_moe_combine_gives_the_same_bits_twice_on_the_card(cuda_device):

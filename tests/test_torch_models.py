@@ -19,11 +19,12 @@ import pytest
 import torch
 
 from repro.configs import get_arch as jget_arch
+from repro.configs import list_archs as jlist_archs
 from repro.models import build_model as jbuild_model
 from repro.models import layers as JL
 from repro.serve import greedy_generate as jgreedy
 from repro_torch import convert
-from repro_torch.configs import LATER_ARCHS, get_arch
+from repro_torch.configs import get_arch
 from repro_torch.kernels import _backend
 from repro_torch.models import build_model, layers as L, transformer
 from repro_torch.serve import greedy_generate
@@ -236,12 +237,31 @@ def test_default_device_is_the_card(monkeypatch):
     assert _backend.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("name", sorted(LATER_ARCHS))
-def test_later_families_raise(name):
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_arch(name)
-    with pytest.raises(NotImplementedError, match="slice"):
-        transformer.check_family(jget_arch(name, smoke=True))
+@pytest.mark.parametrize("name", jlist_archs())
+def test_every_reference_arch_builds_in_the_port(name):
+    """Every architecture of repro is registered in the port: its smoke
+    model builds on the CPU and runs one prefill."""
+    cfg = get_arch(name, smoke=True)
+    m = build_model(cfg, device="cpu")
+    p = m.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {}
+    if cfg.embed_input:
+        n = cfg.prefix_len if cfg.family == "vlm" else 12
+        batch["embeds"] = rng.standard_normal((2, n, cfg.d_model),
+                                              dtype=np.float32)
+    if cfg.family != "audio":
+        batch["tokens"] = tokens(cfg.vocab, (2, 12))
+    with torch.inference_mode():
+        logits, cache = m.prefill(p, batch, max_len=20)
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert cache["index"] == (cfg.prefix_len if cfg.family == "vlm"
+                              else 0) + 12
+    if cfg.family in transformer.FAMILIES:
+        return
+    with pytest.raises(ValueError, match="not a transformer"):
+        transformer.check_family(cfg)
 
 
 def test_decode_past_the_cache_raises_and_loss_is_for_training():
