@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases forecast_parity,forecast_full
     python3 chip_smoke.py --phases train_parity,train_full
     python3 chip_smoke.py --phases family_parity,family_full
+    python3 chip_smoke.py --phases launch,train_full
 
 Phases, each printing JSON lines:
 
@@ -77,18 +78,23 @@ Phases, each printing JSON lines:
    three schedulers, 120 queries per tenant, OREO tenants and threshold
    tenants (0, 0.05, 1e9), each through ``run`` and ``run_batched`` on both
    lanes, on the card and on the CPU; every trace and counter must be
-   bitwise equal to the CPU's ``run``.
+   bitwise equal to the CPU's ``run``.  One job per policy, in the spawned
+   workers that also run forecast_parity's jobs, submitted when the kernel
+   phase ends; the script reads their results after ``router_parity``.
 5. ``full``: the ``tpch-sf10-oreo`` cell -- OREO and Static over a
-   59,986,052-row x 32-column TPC-H-like table (lineitem at scale factor 10)
-   on the card, 12,000 queries of 16 templates, alpha = 80, P = 32; each
+   59,986,052-row x 32-column TPC-H-like table (lineitem at scale factor 10,
+   drawn on the host by a thread from the script's start, then copied)
+   on the card, its 12,000 queries of 16 templates cut to 6,000 for the
+   script's time (``--queries``), alpha = 80, P = 32; each
    method's estimate seconds, block scans and discarded block rows; then
-   OREO over the first 3,000 queries as a ``step`` loop (one launch per
+   OREO over the first 1,500 queries as a ``step`` loop (one launch per
    estimate) and as ``run`` (a block of estimates per launch), in turns
    step, run, run, step, and ``run`` with blocks of 64 and 1,024 queries:
    traces bitwise equal, decide and estimate seconds and launches each.
 6. ``fleet_full``: the ``fleet16-sf1-oreo-k1`` cell (16 OREO tenants of
-   6,001,215 x 8 under one maintenance worker, ``sudden_shift``, 1,500
-   queries per tenant) and the ``fleet64-sf1-threshold`` cell (64 threshold
+   6,001,215 x 8 under one maintenance worker, ``sudden_shift``, its 1,500
+   queries per tenant cut to 750) and the ``fleet64-sf1-threshold`` cell
+   (64 threshold
    tenants of 6,001,215 x 10, 8 projection-sorted layouts each, 300
    selective queries per tenant, both lanes, whose traces must be equal).
 7. ``reorg_parity``: the incremental reorganization plane, card against
@@ -98,11 +104,13 @@ Phases, each printing JSON lines:
    tick and unbounded, a row-denominated token bucket, a standalone engine
    at 137 rows per tick, and ``DiskBackend`` (5,000 x 4, atomic,
    incremental and tight, writer thread off and on); every trace, counter
-   and migration ledger bitwise equal.
+   and migration ledger bitwise equal.  Run whole in one of the spawned
+   workers, from the end of the kernel phase on.
 8. ``reorg_full``: the ``fleet16-sf1-oreo-incr-bucket`` cell -- 16 OREO
    tenants of 6,001,215 x 8 sharing one maintenance budget, four arms
    (atomic and incremental, unlimited and a token bucket of 0.002 swaps or
-   0.002 x 6,001,215 rows per tick); the unlimited arms must be equal and
+   0.002 x 6,001,215 rows per tick; 1,000 queries per tenant cut to
+   500); the unlimited arms must be equal and
    every completed migration ledger must close on alpha.
 9. ``serve_parity``: the serving substrate, card against CPU in float32
    (TF32 off): qwen3-1.7b at full width cut to 2 layers, weights from a
@@ -115,7 +123,7 @@ Phases, each printing JSON lines:
    slot loop with 4 slots serving 8 requests of 2048-token prompts, 64
    new tokens each, ``max_len`` 2176; every prefill attention launches
    the flash kernel's tensor-core route (28 per prefill); then one
-   prefill (with the flash kernel's share of its device time) and four
+   prefill (with the flash kernel's share of its device time) and two
    decode steps under ``torch.profiler``.
 11. ``zorder_parity``: the six methods of Figs. 3 and 4 (Static, Greedy,
    Regret, OREO, MTS Optimal, Offline Optimal) under the Z-order generator
@@ -136,7 +144,8 @@ Phases, each printing JSON lines:
    (mixed_rw and trickle; the other three are cut for the script's time)
    and at its smoke config under all five scenarios, every deterministic
    field and cost ratio equal to the file, rounded as the benchmark
-   rounds; (b) at the smoke config,
+   rounds (the full config's runs go to spawned workers when the kernel
+   phase ends, so they overlap the parity phases); (b) at the smoke config,
    ``run_batched`` on both lanes and the unbounded incremental fleet on
    both planner lanes equal to ``run`` for trickle, mixed_rw and
    bulk_load (every migration closes on alpha at once); (c) the smoke
@@ -145,8 +154,10 @@ Phases, each printing JSON lines:
    every event the WAL replay equals the live manifest and pending
    batches, and the trace equals the ``InMemoryBackend``'s.
 14. ``ingest_full``: the ``fleet16-sf1-oreo-ingest-mixed_rw`` cell, its
-   16 tenants cut to 8 for the script's time -- OREO tenants of 6,001,215
-   x 8 (benchmarks/bench_ingest.py's config) under mixed_rw with an append of 37,508 rows after every 8th query,
+   16 tenants cut to 8 and its 1,000 queries per tenant to 500 for the
+   script's time -- OREO tenants of 6,001,215 x 8
+   (benchmarks/bench_ingest.py's config) under mixed_rw with an append of
+   37,508 rows after every 8th query,
    four arms (never, always, debt, debt/incremental) under
    ``run_batched``; each arm's totals, events/s, decide, ingest, serve and
    reorg seconds, peak memory, final table bytes, the plane's P_cap and
@@ -165,7 +176,8 @@ Phases, each printing JSON lines:
    direct run's; the overload section), the overload front end card
    against CPU; (d) incremental tenants migrated between 2 shards on the
    ``fleet_scan`` lane, traces and ledgers equal to the unsharded fleet's,
-   card against CPU.
+   card against CPU.  Run whole in one of the spawned workers, from the end
+   of the kernel phase on.
 16. ``router_full``: the ``fleet16-sf1-oreo-router`` cell --
    ``fleet16-sf1-oreo-k1``'s width and traffic (16 OREO tenants of
    6,001,215 x 8), queries per tenant cut to ``ROUTER_QUERIES``, behind 4
@@ -198,13 +210,13 @@ Phases, each printing JSON lines:
    the card migrating a tenant that holds a live grown state, equal to
    the inline router, the parent loading no engine file.  (b) drives
    run_batched, bitwise ``run``.  Every job runs in ``FORECAST_WORKERS``
-   spawned processes (host-bound loops) while the script builds the
-   tpch-sf10 table for ``full`` (host work; the card is idle).
+   spawned processes (host-bound loops), submitted when the kernel phase
+   ends, so they overlap the parity phases.
 18. ``forecast_full``: the ``fleet16-sf1-forecast-cyclic_diurnal`` cell --
    16 tenants of 6,001,215 x 8 at ``BENCH_forecast.json``'s full config
    (alpha 20, delta 10, P 16, window 80, gen_every 40, the default
    ``ForecastConfig``), cyclic_diurnal seed 7, ``FORECAST_QUERIES``
-   (750 of the config's 1,500, cut for the script's time) queries a
+   (400 of the config's 1,500, cut for the script's time) queries a
    tenant, unlimited: (A) reactive OREO on ``run_batched``
    (decision_fused), (B) ``ForecastPolicy`` through ``run``, (C) the same
    through ``run_batched``, bitwise (B), (D) gradual_drift under
@@ -259,18 +271,34 @@ Phases, each printing JSON lines:
    float32 train step (loss, gradient norm, parameters).
 22. ``family_full``: five cells at full width and depth in bf16, weights
    drawn on the card from a seeded generator: ``paligemma-3b-serve`` (4
-   requests of 256 seeded patch embeddings and 1,792 tokens, 32 greedy
+   requests of 256 seeded patch embeddings and 1,792 tokens, 16 greedy
    tokens), ``musicgen-large-serve`` (4 requests of 1,024 frame
-   embeddings, 64 decode steps fed seeded frames), and through
-   ``serve_full``'s slot loop (4 slots, 8 requests of 2,048 tokens, 32 new
-   tokens) ``moonshot-v1-16b-a3b-serve`` (with the tokens its capacity
+   embeddings, 32 decode steps fed seeded frames), and through
+   ``serve_full``'s slot loop (4 slots, 8 requests of 2,048 tokens, 16 new
+   tokens; the three decode lengths are cut for the script's time)
+   ``moonshot-v1-16b-a3b-serve`` (with the tokens its capacity
    drops per layer at prefill and decode), ``rwkv6-3b-serve`` and
    ``zamba2-2.7b-serve``; prefill tokens/s, seconds per output token, peak
    memory, flash launches by route (all on the tensor cores, the first and
    every 10th held against the plain version), one profiled prefill's
    idle share and, for rwkv6 and zamba2, the recurrences' device time,
-   share of busy time and launches in a profiled prefill and in 4 decode
+   share of busy time and launches in a profiled prefill and in 2 decode
    steps, with all kernel launches per decode step.
+
+23. ``launch``: the launch layer.  (a) In a host worker started at the
+   script's start (it overlaps the card's phases; its tensors are fake
+   and hold no memory): ``repro_torch.launch.dryrun.run_cell`` of the three
+   ``qwen3-1.7b`` cells (train_4k, prefill_32k, decode_32k) on the fake
+   16 x 16 mesh, each record's per-device FLOPs, bytes, collective bytes
+   and peak bytes, and its roofline row.  (b) Inside ``train_full``'s
+   ``qwen3-1.7b-train`` cell, on its full-width model and state: one train
+   step counted by ``op_cost.OpCost`` on the card's tensors and the same
+   step on fake tensors (equal FLOPs and bytes; 56 forward and 28
+   backward flash launches counted).  (c) The cell's measured seconds per
+   step with its counted FLOP/s, MFU (6 N tokens over the step seconds x
+   989e12) and roofline fraction (the counted work's roofline time over
+   the step seconds), beside the card's name and power limit and the
+   torch version.  ``--phases launch`` runs ``train_full``'s cell too.
 
 Kernel launch counts are reset just before each main path and read just
 after it; every 50th (fleet) or 100th (single table, per-query scan or
@@ -308,7 +336,10 @@ FP64_OPS_PER_S = 34e12        # H100 SXM float64 outside the tensor cores
 FULL_ROWS = 59_986_052        # TPC-H lineitem cardinality at SF 10
 FULL_COLUMNS = 32
 FULL_QUERIES = 12_000
-MIN_QUERIES = 3_000
+QUERIES = 6_000               # the default --queries: the cell's 12,000 cut
+                              # for the script's time
+MIN_QUERIES = 1_500           # the floor of --queries: paired_estimates's
+                              # step and run arms over the first 1,500
 SEGMENTS = 12
 TEMPLATES = 16
 ALPHA = 80.0
@@ -321,11 +352,13 @@ PHASES = ("kernel", "parity", "fleet_parity", "full", "fleet_full",
           "zorder_parity", "zorder_full", "ingest_parity", "ingest_full",
           "router_parity", "router_full", "forecast_parity",
           "forecast_full", "train_parity", "train_full", "family_parity",
-          "family_full")
+          "family_full", "launch")
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, written in one call: spawned workers share stdout."""
+    sys.stdout.write(json.dumps({"phase": phase, **fields}) + "\n")
+    sys.stdout.flush()
 
 
 def card_line() -> str:
@@ -335,15 +368,24 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def cuda_time_ms(fn, reps: int) -> float:
+def cuda_time_ms(fn, reps: int, budget_s: float = 0.25) -> float:
     """Mean milliseconds per call of ``fn`` over ``reps`` back-to-back
-    calls, by CUDA events, after a warm-up."""
+    calls, by CUDA events, after a warm-up.  A call slower than ``budget_s
+    / reps`` (a plain version, a scalar route) is timed over fewer calls,
+    at least 10, so the window stays near ``budget_s``."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    one_s = start.elapsed_time(end) / 1e3
+    if one_s > 0:
+        reps = max(min(reps, 10), min(reps, int(budget_s / one_s)))
     start.record()
     for _ in range(reps):
         fn()
@@ -727,35 +769,60 @@ def phase_parity(device) -> None:
     emit("parity", kernel_launches_card=launches)
 
 
-def sf10_inputs(device, total_queries: int, rows: int = FULL_ROWS):
-    """The table and traffic of the tpch-sf10 cells (tpch-sf10-oreo and
-    tpch-sf10-zorder share them): built once, on the card."""
-    import numpy as np
-    import torch
-    from repro_torch import core
+def sf10_table(rows: int = FULL_ROWS) -> tuple:
+    """The tpch-sf10 cells' table built on the host (the port's
+    ``build_table`` on the CPU: the same bits as on the card), and the
+    seconds it took."""
     from repro_torch.data import build_table
+    t0 = time.perf_counter()
+    table = build_table(rows, FULL_COLUMNS, seed=0, device="cpu")
+    return table, time.perf_counter() - t0
+
+
+def start_sf10_inputs(device, total_queries: int):
+    """Starts sf10_table now in a thread that touches nothing on the card
+    (numpy's draws release the GIL), so the table's host-bound build
+    overlaps the kernels' build and the kernel phase; returns a function
+    that waits for it, copies the table to the card, draws the traffic,
+    prints the ``full`` line and gives (table, stream): the table and
+    traffic of the tpch-sf10 cells (tpch-sf10-oreo and tpch-sf10-zorder
+    share them)."""
+    import concurrent.futures as cf
     if total_queries < MIN_QUERIES:
         raise ValueError(f"--queries below {MIN_QUERIES}")
-    if total_queries != FULL_QUERIES:
-        emit("full", cut=f"queries {FULL_QUERIES} -> {total_queries}")
-    torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    data = build_table(rows, FULL_COLUMNS, seed=0, device=device)
-    torch.cuda.synchronize()
-    table_seconds = time.perf_counter() - t0
-    rng = np.random.default_rng(10)
-    templates = core.make_templates(TEMPLATES, FULL_COLUMNS, rng,
-                                    cols_per_template=(1, 2),
-                                    selectivity_range=(0.02, 0.10))
-    stream = core.generate_workload(
-        templates, data.amin(dim=0).cpu().numpy(),
-        data.amax(dim=0).cpu().numpy(), total_queries=total_queries,
-        seed=20, num_segments=SEGMENTS)
-    emit("full", table="tpch-sf10", rows=rows, columns=FULL_COLUMNS,
-         queries=total_queries, alpha=ALPHA, partitions=PARTITIONS,
-         table_bytes=data.numel() * 8, table_seconds=table_seconds,
-         peak_bytes=torch.cuda.max_memory_allocated(device))
-    return data, stream
+    pool = cf.ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(sf10_table)
+    pool.shutdown(wait=False)
+
+    def result() -> tuple:
+        import numpy as np
+        from repro_torch import core
+        t0 = time.perf_counter()
+        host, table_seconds = future.result()
+        waited = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = host.to(device)
+        del host
+        sync(device)
+        copy_seconds = time.perf_counter() - t0
+        if total_queries != FULL_QUERIES:
+            emit("full", cut=f"queries {FULL_QUERIES} -> {total_queries}")
+        rng = np.random.default_rng(10)
+        templates = core.make_templates(TEMPLATES, FULL_COLUMNS, rng,
+                                        cols_per_template=(1, 2),
+                                        selectivity_range=(0.02, 0.10))
+        stream = core.generate_workload(
+            templates, data.amin(dim=0).cpu().numpy(),
+            data.amax(dim=0).cpu().numpy(), total_queries=total_queries,
+            seed=20, num_segments=SEGMENTS)
+        emit("full", table="tpch-sf10", rows=len(data),
+             columns=FULL_COLUMNS, queries=total_queries, alpha=ALPHA,
+             partitions=PARTITIONS, table_bytes=data.numel() * 8,
+             table_seconds=table_seconds, waited_seconds=waited,
+             copy_to_card_seconds=copy_seconds,
+             built="on the host, in a thread from the script's start")
+        return data, stream
+    return result
 
 
 def phase_full(device, data, stream) -> int:
@@ -1587,15 +1654,25 @@ def fleet_trace(res) -> tuple:
             tuple(sorted(res.scheduler_stats.items())))
 
 
-def phase_fleet_parity(device, rows: int = 20_000, columns: int = 8,
-                       queries: int = 120) -> dict:
-    """Card against CPU, every fleet path; returns the card's launches."""
+FLEET_PARITY_POLICIES = ("oreo", "threshold0", "threshold0.05",
+                         "threshold1e+09")
+
+
+def fleet_parity_job(job: dict, rows: int = 20_000, columns: int = 8,
+                     queries: int = 120) -> dict:
+    """fleet_parity's runs for one of FLEET_PARITY_POLICIES, card against
+    CPU, in a spawned worker (or here): the five drift scenarios x three
+    schedulers, each through ``run`` and ``run_batched`` on both lanes on
+    both devices; every trace must equal the CPU's ``run``.  Returns the
+    combinations, the card's launches and the seconds."""
     import numpy as np
     import torch
     from repro_torch import core, engine
     from repro_torch.kernels.decision_fused import decision_fused
     from repro_torch.kernels.fleet_scan import fleet_scan
     from repro_torch.kernels.pruning import pruning
+    torch.set_num_threads(1)
+    device, policy = torch.device(job["device"]), job["policy"]
     tables = {f"t{t}": np.random.default_rng(FLEET_SEED + t).uniform(
         0, 100, size=(rows, columns)) for t in range(3)}
     lo = np.min([d.min(0) for d in tables.values()], axis=0)
@@ -1603,55 +1680,80 @@ def phase_fleet_parity(device, rows: int = 20_000, columns: int = 8,
     data = {dev.type: {tid: torch.as_tensor(d, device=dev)
                        for tid, d in tables.items()}
             for dev in (device, torch.device("cpu"))}
-    makers = {"oreo": lambda d: oreo_tenant(d, 10.0, 5, 8, 2, 60, 30)}
-    for th in (0.0, 0.05, 1e9):
-        makers[f"threshold{th:g}"] = (
-            lambda d, th=th: threshold_tenant(d, th))
+    if policy == "oreo":
+        def make(d):
+            return oreo_tenant(d, 10.0, 5, 8, 2, 60, 30)
+    else:
+        def make(d, th=float(policy[len("threshold"):])):
+            return threshold_tenant(d, th)
     counters = (pruning.scan_matrix, fleet_scan.scan_fleet,
                 decision_fused.fused_decision)
     launched = {c.__name__: 0 for c in counters}
     combos = 0
     t0 = time.perf_counter()
-    for policy, make in makers.items():
-        for scenario in FLEET_SCENARIOS:
-            stream = core.make_drift_scenario(scenario, lo, hi,
-                                              num_tenants=3,
-                                              queries_per_tenant=queries,
-                                              seed=7)
-            for sname, sched in fleet_schedulers().items():
-                traces = {}
-                for dev in data:
-                    for mode in ("run", "fleet_scan", "decision_fused"):
-                        before = [c.launches for c in counters]
-                        fleet = engine.FleetEngine(
-                            {tid: make(data[dev][tid])
-                             for tid in stream.tenant_ids}, sched())
-                        res = (fleet.run(stream) if mode == "run" else
-                               fleet.run_batched(stream, compute=mode))
-                        traces[dev, mode] = fleet_trace(res)
-                        for c, b in zip(counters, before):
-                            if dev == "cuda":
-                                launched[c.__name__] += c.launches - b
-                            elif c.launches != b:
-                                raise AssertionError("fleet_parity: a CPU "
-                                                     "run launched a kernel")
-                want = traces["cpu", "run"]
-                bad = [k for k, v in traces.items() if v != want]
-                if bad:
-                    emit("fleet_parity", policy=policy, scenario=scenario,
-                         scheduler=sname, bitwise_equal=False, differ=bad)
-                    raise AssertionError(f"fleet_parity: {policy} "
-                                         f"{scenario} {sname}: {bad} differ "
-                                         f"from the CPU run")
-                combos += 1
+    for scenario in FLEET_SCENARIOS:
+        stream = core.make_drift_scenario(scenario, lo, hi, num_tenants=3,
+                                          queries_per_tenant=queries, seed=7)
+        for sname, sched in fleet_schedulers().items():
+            traces = {}
+            for dev in data:
+                for mode in ("run", "fleet_scan", "decision_fused"):
+                    before = [c.launches for c in counters]
+                    fleet = engine.FleetEngine(
+                        {tid: make(data[dev][tid])
+                         for tid in stream.tenant_ids}, sched())
+                    res = (fleet.run(stream) if mode == "run" else
+                           fleet.run_batched(stream, compute=mode))
+                    traces[dev, mode] = fleet_trace(res)
+                    for c, b in zip(counters, before):
+                        if dev == "cuda":
+                            launched[c.__name__] += c.launches - b
+                        elif c.launches != b:
+                            raise AssertionError("fleet_parity: a CPU "
+                                                 "run launched a kernel")
+            want = traces["cpu", "run"]
+            bad = [k for k, v in traces.items() if v != want]
+            if bad:
+                emit("fleet_parity", policy=policy, scenario=scenario,
+                     scheduler=sname, bitwise_equal=False, differ=bad)
+                raise AssertionError(f"fleet_parity: {policy} "
+                                     f"{scenario} {sname}: {bad} differ "
+                                     f"from the CPU run")
+            combos += 1
+    return {"combos": combos, "launches": launched,
+            "seconds": time.perf_counter() - t0}
+
+
+def start_fleet_parity(device, pool):
+    """Submits fleet_parity_job for each policy now to ``pool``; returns a
+    function that waits for them and gives their results in order."""
+    futures = [pool.submit(fleet_parity_job, {"device": device.type,
+                                              "policy": policy})
+               for policy in FLEET_PARITY_POLICIES]
+    return lambda: [f.result() for f in futures]
+
+
+def phase_fleet_parity(device, host=None) -> dict:
+    """Card against CPU, every fleet path: fleet_parity_job for each
+    policy, from ``host`` (start_fleet_parity's function, whose jobs ran
+    in spawned workers beside the other parity phases) or here if it is
+    None; returns the card's launches."""
+    t0 = time.perf_counter()
+    results = (host() if host is not None else
+               [fleet_parity_job({"device": device.type, "policy": policy})
+                for policy in FLEET_PARITY_POLICIES])
+    launched = {}
+    for policy, out in zip(FLEET_PARITY_POLICIES, results):
+        for k, n in out["launches"].items():
+            launched[k] = launched.get(k, 0) + n
         emit("fleet_parity", policy=policy, scenarios=len(FLEET_SCENARIOS),
              schedulers=3, runs_per_combo=6, bitwise_equal=True,
-             seconds=time.perf_counter() - t0)
+             job_seconds=out["seconds"])
     if not (launched["scan_fleet"] and launched["fused_decision"]):
         raise AssertionError(f"fleet_parity: the card runs did not launch "
                              f"both fleet kernels: {launched}")
-    emit("fleet_parity", combos=combos, launches_card=launched,
-         seconds=time.perf_counter() - t0)
+    emit("fleet_parity", combos=sum(r["combos"] for r in results),
+         launches_card=launched, seconds=time.perf_counter() - t0)
     return launched
 
 
@@ -1674,13 +1776,20 @@ class PassCounter:
 
 def fleet_tables(device, tenants: int, rows: int, columns: int) -> dict:
     """``default_rng(FLEET_SEED + t).uniform(0, 100)`` tables
-    (benchmarks/bench_fleet.py make_tenant_data), one tenant at a time
-    into device tensors."""
+    (benchmarks/bench_fleet.py make_tenant_data) as device tensors, drawn
+    by eight threads: each tenant has its own generator, and numpy's fill
+    and the copy to the card release the GIL, so the tables are the same
+    bits as one tenant at a time."""
+    import concurrent.futures as cf
     import numpy as np
     import torch
-    return {f"t{t}": torch.as_tensor(np.random.default_rng(
-        FLEET_SEED + t).uniform(0, 100, size=(rows, columns)), device=device)
-        for t in range(tenants)}
+
+    def draw(t: int):
+        return torch.as_tensor(np.random.default_rng(FLEET_SEED + t).uniform(
+            0, 100, size=(rows, columns)), device=device)
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        return {f"t{t}": d for t, d in enumerate(pool.map(draw,
+                                                          range(tenants)))}
 
 
 def run_cell(name: str, fleet, events, lane: str, device) -> tuple:
@@ -1741,10 +1850,11 @@ def run_cell(name: str, fleet, events, lane: str, device) -> tuple:
 
 
 def cell_fleet16(device, rows: int = SF1_ROWS, tenants: int = 16,
-                 queries: int = 1_500) -> dict:
+                 queries: int = 750) -> dict:
     """fleet16-sf1-oreo-k1: 16 OREO tenants under one maintenance worker
     (benchmarks/bench_fleet.py:59-70 configuration, BENCH_fleet.json
-    config: alpha 20, delta 10, P 16, window 80, gen_every 40)."""
+    config: alpha 20, delta 10, P 16, window 80, gen_every 40), its 1,500
+    queries per tenant cut to 750 for the script's time."""
     import torch
     from repro_torch import core, engine
     name = "fleet16-sf1-oreo-k1"
@@ -1772,7 +1882,9 @@ def cell_fleet16(device, rows: int = SF1_ROWS, tenants: int = 16,
     times = time_fleet_kernels(device, *fleet_frames(fm, device),
                                fm._mins, fm._maxs)
     emit("fleet_full", cell=name, tenants=tenants, rows=rows, columns=8,
-         queries_per_tenant=queries, scenario="sudden_shift",
+         queries_per_tenant=queries,
+         reduced={"queries_per_tenant": f"1500 -> {queries}"},
+         scenario="sudden_shift",
          scheduler="k1", table_bytes=sum(d.numel() * 8
                                          for d in tables.values()),
          table_seconds=table_seconds, setup_seconds=setup,
@@ -2085,12 +2197,13 @@ REORG_RATE = 0.002            # benchmarks/bench_reorg.py: bucket_rate
 
 
 def cell_reorg(device, rows: int = SF1_ROWS, tenants: int = 16,
-               queries: int = 1_000) -> dict:
+               queries: int = 500) -> dict:
     """fleet16-sf1-oreo-incr-bucket: 16 OREO tenants sharing one
     row-denominated maintenance budget (benchmarks/bench_reorg.py:54-75,
     180-198, BENCH_reorg.json config: alpha 10, delta 10, P 16, window
     80, gen_every 40, sudden_shift seed 7, 1,000 queries per tenant, bucket
-    rate 0.002), in four arms over the same tables; returns each arm's
+    rate 0.002; its 1,000 queries per tenant cut to 500 for the script's
+    time), in four arms over the same tables; returns each arm's
     launches."""
     import torch
     from repro_torch import core, engine
@@ -2106,7 +2219,9 @@ def cell_reorg(device, rows: int = SF1_ROWS, tenants: int = 16,
                                       hi.cpu().numpy(), num_tenants=tenants,
                                       queries_per_tenant=queries, seed=7)
     emit("reorg_full", cell=name, tenants=tenants, rows=rows, columns=8,
-         queries_per_tenant=queries, scenario="sudden_shift",
+         queries_per_tenant=queries,
+         reduced={"queries_per_tenant": f"1000 -> {queries}"},
+         scenario="sudden_shift",
          table_bytes=sum(d.numel() * 8 for d in tables.values()),
          table_seconds=table_seconds,
          row_budget_per_tick=REORG_RATE * rows)
@@ -2298,17 +2413,69 @@ def ingest_durable_parity(device, counted, rows: int = 20_000) -> None:
          compactions=compactions, trace_equals_memory=True)
 
 
-def phase_ingest_parity(device) -> dict:
+def ingest_file_job(job: dict) -> dict:
+    """ingest_parity (a) at BENCH_ingest.json's full config for one
+    scenario, run in a spawned worker on the device the job names: every
+    arm through ``FleetEngine.run``; returns each arm's fields and total
+    cost, the job's seconds and its kernel launches."""
+    import torch
+    from repro_torch import core, engine
+    torch.set_num_threads(1)
+    device = torch.device(job["device"])
+    cfg = job["config"]
+    counters = kernel_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    data, lo, hi = ingest_tables(device, cfg["tenants"], cfg["rows"],
+                                 cfg["columns"])
+    stream = core.make_ingest_scenario(
+        job["scenario"], lo, hi, num_tenants=cfg["tenants"],
+        queries_per_tenant=cfg["queries_per_tenant"],
+        seed=INGEST_SCENARIO_SEED)
+    got, combined = {}, {}
+    for arm in INGEST_ARMS:
+        fleet = engine.FleetEngine(
+            {tid: ingest_tenant(data[tid], cfg["alpha"], cfg["delta"],
+                                cfg["partitions"], arm)
+             for tid in data}, engine.UnlimitedScheduler())
+        res = fleet.run(stream)
+        got[arm] = ingest_fields(res, fleet)
+        combined[arm] = res.total_cost
+    sync(device)
+    return {"got": got, "combined": combined,
+            "seconds": time.perf_counter() - t0,
+            "launches": {k: c.launches - before[k]
+                         for k, c in counters.items()}}
+
+
+def start_ingest_file(device, pool):
+    """Submits ingest_file_job for each of INGEST_FULL_SCENARIOS now to
+    ``pool``; returns a function that waits for them and gives
+    {scenario: result}."""
+    bench = json.loads((ROOT / "BENCH_ingest.json").read_text())
+    futures = {s: pool.submit(ingest_file_job, {
+        "scenario": s, "config": bench["config"], "device": device.type})
+        for s in INGEST_FULL_SCENARIOS}
+    return lambda: {s: f.result() for s, f in futures.items()}
+
+
+def phase_ingest_parity(device, file_host=None) -> dict:
     """(a) BENCH_ingest.json's deterministic fields on the card, at its
     full and smoke configs; (b) at the smoke config, run_batched on both
     lanes and the unbounded incremental fleet equal ``run``; (c) the
     smoke config's card traces equal the CPU's; (d) a durable
     DiskBackend's WAL replays to the live manifest after every event.
+    (a)'s full config runs in spawned workers (ingest_file_job) from
+    ``file_host``, start_ingest_file's function, or here if it is None.
     Returns the card's launches."""
     import torch
     from repro_torch import core, engine
     cpu = torch.device("cpu")
     bench = json.loads((ROOT / "BENCH_ingest.json").read_text())
+    if file_host is None:
+        file_host = (lambda: {s: ingest_file_job({
+            "scenario": s, "config": bench["config"],
+            "device": device.type}) for s in INGEST_FULL_SCENARIOS})
     counters = kernel_counters()
     launched = {k: 0 for k in counters}
     t0 = time.perf_counter()
@@ -2371,20 +2538,49 @@ def phase_ingest_parity(device) -> dict:
              seconds=time.perf_counter() - t0)
         return migrations
 
+    def file_section(section, scenario, got, combined, arms_want,
+                     ratio_want, host) -> int:
+        """Holds one scenario's arms against the file; returns the fields
+        checked."""
+        ratio = {arm: round(combined[arm] / max(combined["debt"], 1e-12),
+                            4) for arm in ("never", "always")}
+        bad = [] if ratio == ratio_want else [("ratio", ratio, ratio_want)]
+        checked = len(ratio)
+        if arms_want is not None:
+            bad += [(arm, f, got[arm][f], arms_want[arm][f])
+                    for arm in INGEST_ARMS for f in INGEST_FIELDS
+                    if got[arm][f] != arms_want[arm][f]]
+            checked += len(INGEST_ARMS) * len(INGEST_FIELDS)
+        emit("ingest_parity", case=f"BENCH_ingest.json {section}",
+             scenario=scenario, arms=got, cost_ratio_vs_debt_aware=ratio,
+             equal_to_file=not bad, card_equals_cpu=host is not None,
+             seconds=time.perf_counter() - t0)
+        if bad:
+            raise AssertionError(f"ingest_parity: {section} {scenario} "
+                                 f"differs from BENCH_ingest.json: {bad}")
+        return checked
+
     checked = migrations = 0
     for section, (cfg, want) in sections.items():
+        if section == "full":
+            for scenario, out in sorted(file_host().items()):
+                got, combined = out["got"], out["combined"]
+                for k, n in out["launches"].items():
+                    launched[k] += n
+                if got["never"]["compactions"]:
+                    raise AssertionError(f"ingest_parity: {scenario}: the "
+                                         f"never arm compacted")
+                checked += file_section(section, scenario, got, combined,
+                                        *want[scenario], host=None)
+            continue
         data, lo, hi = ingest_tables(device, cfg["tenants"], cfg["rows"],
                                      cfg["columns"])
-        host = ({tid: d.cpu() for tid, d in data.items()}
-                if section == "smoke" else None)
+        host = {tid: d.cpu() for tid, d in data.items()}
         for scenario in sorted(core.INGEST_SCENARIOS):
-            if section == "full" and scenario not in INGEST_FULL_SCENARIOS:
-                continue
             stream = core.make_ingest_scenario(
                 scenario, lo, hi, num_tenants=cfg["tenants"],
                 queries_per_tenant=cfg["queries_per_tenant"],
                 seed=INGEST_SCENARIO_SEED)
-            arms_want, ratio_want = want[scenario]
             combined, got = {}, {}
             for arm in INGEST_ARMS:
                 fleet = build(data, cfg, arm)
@@ -2394,36 +2590,19 @@ def phase_ingest_parity(device) -> dict:
                 if arm == "never" and got[arm]["compactions"]:
                     raise AssertionError(f"ingest_parity: {scenario}: the "
                                          f"never arm compacted")
-                if section == "smoke" and arm == "debt":
+                if arm == "debt":
                     want_debt = ingest_trace(fleet, res)
-                if host is not None:
-                    cpu_fleet = build(host, cfg, arm)
-                    cpu_res = counted(cpu, lambda: cpu_fleet.run(stream))
-                    if (ingest_trace(cpu_fleet, cpu_res)
-                            != ingest_trace(fleet, res)):
-                        raise AssertionError(f"ingest_parity: {scenario} "
-                                             f"{arm}: card and CPU traces "
-                                             f"differ")
+                cpu_fleet = build(host, cfg, arm)
+                cpu_res = counted(cpu, lambda: cpu_fleet.run(stream))
+                if (ingest_trace(cpu_fleet, cpu_res)
+                        != ingest_trace(fleet, res)):
+                    raise AssertionError(f"ingest_parity: {scenario} "
+                                         f"{arm}: card and CPU traces "
+                                         f"differ")
                 del fleet
-            ratio = {arm: round(combined[arm] / max(combined["debt"], 1e-12),
-                                4) for arm in ("never", "always")}
-            bad = [] if ratio == ratio_want else [("ratio", ratio,
-                                                   ratio_want)]
-            if arms_want is not None:
-                bad += [(arm, f, got[arm][f], arms_want[arm][f])
-                        for arm in INGEST_ARMS for f in INGEST_FIELDS
-                        if got[arm][f] != arms_want[arm][f]]
-                checked += len(INGEST_ARMS) * len(INGEST_FIELDS)
-            checked += len(ratio)
-            emit("ingest_parity", case=f"BENCH_ingest.json {section}",
-                 scenario=scenario, arms=got, cost_ratio_vs_debt_aware=ratio,
-                 equal_to_file=not bad, card_equals_cpu=host is not None,
-                 seconds=time.perf_counter() - t0)
-            if bad:
-                raise AssertionError(f"ingest_parity: {section} {scenario} "
-                                     f"differs from BENCH_ingest.json: {bad}")
-            if section == "smoke" and scenario in ("trickle", "mixed_rw",
-                                                   "bulk_load"):
+            checked += file_section(section, scenario, got, combined,
+                                    *want[scenario], host=host)
+            if scenario in ("trickle", "mixed_rw", "bulk_load"):
                 migrations += same_as_run(data, cfg, scenario, stream,
                                           want_debt)
         del data
@@ -2529,14 +2708,15 @@ def final_plane_kernels(device, fleet, queries) -> dict:
 
 def phase_ingest_full(device, rows: int = SF1_ROWS,
                       tenants: int = INGEST_TENANTS,
-                      queries: int = 1_000) -> dict:
+                      queries: int = 500) -> dict:
     """fleet16-sf1-oreo-ingest-mixed_rw: benchmarks/bench_ingest.py's
     config (alpha 4, delta 10, P 16, window 80, gen_every 40) with the
     mixed_rw scenario (seed 7; an append after every 8th query, 50 of
     8,000 rows, so 37,508 rows at 6,001,215) over tenants of SF 1, cut
-    from 16 to ``INGEST_TENANTS`` to keep the whole script near half its
-    time limit; arms never, always, debt and debt/incremental under
-    run_batched's decision_fused lane.  Returns each arm's launches."""
+    from 16 to ``INGEST_TENANTS`` and its 1,000 queries per tenant to 500
+    to keep the whole script near half its time limit; arms never,
+    always, debt and debt/incremental under run_batched's decision_fused
+    lane.  Returns each arm's launches."""
     import torch
     from repro_torch import core, engine
     torch.cuda.reset_peak_memory_stats(device)
@@ -2554,7 +2734,8 @@ def phase_ingest_full(device, rows: int = SF1_ROWS,
     stream_seconds = time.perf_counter() - t0
     appended = stream.total_appended_rows
     emit("ingest_full", cell=INGEST_CELL, tenants=tenants,
-         reduced={"tenants": f"16 -> {tenants}"}, rows=rows,
+         reduced={"tenants": f"16 -> {tenants}",
+                  "queries_per_tenant": f"1000 -> {queries}"}, rows=rows,
          columns=8, queries_per_tenant=queries, scenario="mixed_rw",
          batch_rows=INGEST_BATCH_ROWS, events=len(stream),
          rows_appended=appended, appended_bytes=appended * 8 * 8,
@@ -2722,9 +2903,11 @@ def phase_flash_kernel(device) -> dict:
     """flash_attention against its plain version on the card over
     FLASH_SHAPES and FAMILY_FLASH_SHAPES, each route of FLASH_ROUTES (both
     in bfloat16, atol = rtol = 2e-2; the scalar one in float32, 1e-5), with
-    CUDA-event times of each route, the plain version and PyTorch's scaled_dot_product_attention
-    over 50 launches each; returns the kernel's summary at qwen3-1.7b's
-    prefill shape in bfloat16: the tensor-core route as ``ms``, the scalar
+    CUDA-event times of each route, the plain version and PyTorch's
+    scaled_dot_product_attention over 50 launches each (fewer, at least
+    10, for a call past 5 ms: cuda_time_ms); returns the kernel's summary
+    at qwen3-1.7b's prefill shape in bfloat16: the tensor-core route as
+    ``ms``, the scalar
     route (the earlier design) on the same tensors as
     ``earlier_design_ms``."""
     import numpy as np
@@ -3062,10 +3245,13 @@ def profile_window(fn, focus: str = "", spans=None, steps: int = 0) -> dict:
 
 
 def profile_serve(model, params, prompts, max_len: int, name: str,
-                  phase: str = "serve_full", spans=None) -> None:
-    """One prefill of a full slot batch and four decode steps at the end of
-    the cache, each under torch.profiler (after the main path's counts are
-    read); ``spans`` as profile_window's."""
+                  phase: str = "serve_full", spans=None,
+                  steps: int = 2) -> None:
+    """One prefill of a full slot batch and ``steps`` decode steps at the
+    end of the cache, each under torch.profiler (after the main path's
+    counts are read); ``spans`` as profile_window's.  The profiler's own
+    processing takes about a second per thousand launches, so the decode
+    window is short."""
     import numpy as np
     import torch
     from repro_torch import serve
@@ -3077,17 +3263,17 @@ def profile_serve(model, params, prompts, max_len: int, name: str,
         out["cache"] = prefill_fn(params, {"tokens": tokens})[1]
     pre = profile_window(prefill, focus="flash_attention", spans=spans)
     cache = out["cache"]
-    cache["index"] = max_len - 5
+    cache["index"] = max_len - 1 - steps
     tok = tokens[:, :1]
 
     def decode():
         c = cache
-        for _ in range(4):
+        for _ in range(steps):
             c = decode_fn(params, {"tokens": tok}, c)[1]
-    dec = profile_window(decode, spans=spans, steps=4)
+    dec = profile_window(decode, spans=spans, steps=steps)
     emit(phase, cell=name, profile="prefill (one slot batch)", **pre)
-    emit(phase, cell=name, profile="4 decode steps at the cache's end",
-         **dec)
+    emit(phase, cell=name, profile=f"{steps} decode steps at the cache's "
+         f"end", **dec)
 
 
 def cache_sizes(spec: dict) -> tuple:
@@ -3649,14 +3835,16 @@ def phase_train_parity(device, host=None) -> None:
 
 def cell_train(device, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
                seq: int = TRAIN_SEQ, docs: int = TRAIN_DOCS,
-               arch: str = TRAIN_ARCH) -> dict:
+               arch: str = TRAIN_ARCH, launch: bool = False) -> dict:
     """qwen3-1.7b-train: qwen3-1.7b at full width and depth in bf16
     (hf:Qwen/Qwen3-1.7B, configs/qwen3_1p7b.py), weights drawn on the card
     from a seeded generator, per-layer remat, the default OptimizerConfig;
     ``steps`` steps of build_train_step on batches of ``batch`` x ``seq``
     tokens from OreoDataPipeline over synth_corpus(docs, seq, vocab) at
     alpha 80.  The first step is run twice from one state and must give the
-    same bits.  Returns the main path's launches."""
+    same bits.  With ``launch``, the launch phase's (b) and (c) follow the
+    timed steps (:func:`launch_counts`).  Returns the main path's
+    launches."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data import (OreoDataPipeline, mixture_recipe,
@@ -3747,6 +3935,9 @@ def cell_train(device, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
          flash_bwd_launches_by_route=bwd_routes,
          flash_bwd_launches_per_step=bwd / steps, pruning_launches=prunes,
          card=card_line())
+    if launch:
+        launch_counts(device, cfg, model, opt_cfg, state, step_fn,
+                      batch_at(steps), sum(times[1:]) / max(steps - 1, 1))
     prof = profile_window(lambda: step_fn(state, batch_at(steps)),
                           focus="flash_attention_bwd")
     emit("train_full", cell=name, profile="one train step", **prof)
@@ -3765,6 +3956,116 @@ def cell_train(device, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
                              f"kernel")
     return {"flash_attention": fwd, "flash_attention_bwd": bwd,
             "pruning": prunes}
+
+
+# ---------------------------------------------------------------------------
+# The launch layer: host dry runs, op counts on the card and on fake
+# tensors, the roofline line
+# ---------------------------------------------------------------------------
+
+LAUNCH_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
+                ("qwen3-1.7b", "decode_32k"))
+LAUNCH_KEYS = ("flops_per_device", "bytes_per_device",
+               "collective_bytes_per_device")
+
+
+def launch_dryrun_cells() -> list:
+    """(a)'s host side: each LAUNCH_CELLS record on the fake 16 x 16 mesh
+    (fake CUDA tensors, which hold no memory), without its per-op calls,
+    and its roofline row."""
+    import torch
+    from repro_torch.launch import dryrun, roofline
+    torch.set_num_threads(1)
+    out = []
+    for arch, shape in LAUNCH_CELLS:
+        rec = dryrun.run_cell(arch, shape, False)
+        rec.pop("op_calls")
+        out.append((rec, roofline.analyze_record(rec)))
+    return out
+
+
+def start_launch_dryrun():
+    """Starts (a) now in a spawned process; returns a function that waits
+    for it and gives launch_dryrun_cells's list."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    pool = cf.ProcessPoolExecutor(max_workers=1,
+                                  mp_context=mp.get_context("spawn"))
+    future = pool.submit(launch_dryrun_cells)
+    pool.shutdown(wait=False)
+    return future.result
+
+
+def phase_launch(host) -> None:
+    """(a): prints the host's dry-run records and roofline rows."""
+    card = card_line()
+    for rec, row in host():
+        mem = rec["memory_analysis"]
+        emit("launch", part="a: dry run", cell=f"{rec['arch']}__"
+             f"{rec['shape']}__{rec['mesh']}", mesh=rec["mesh"],
+             device=rec["device"], trace_seconds=rec["trace_seconds"],
+             **{k: rec["op_cost"][k] for k in LAUNCH_KEYS},
+             collective_bytes_by_type=rec["op_cost"][
+                 "collective_bytes_by_type"],
+             peak_bytes_per_device=mem["peak_bytes"],
+             param_bytes_per_device=mem["param_bytes"], fits=mem["fits"],
+             roofline={k: row[k] for k in (
+                 "compute_s", "memory_s", "collective_s", "dominant",
+                 "model_flops", "useful_ratio", "roofline_fraction")},
+             card=card)
+
+
+def launch_counts(device, cfg, model, opt_cfg, state, step_fn, batch,
+                  s_per_step) -> None:
+    """(b) and (c): one train step counted by OpCost on the card's state
+    and batch, the same step on fake tensors of the same shapes, and the
+    roofline line from the measured seconds per step."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import roofline
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.train import init_train_state
+    t0 = time.perf_counter()
+    reset_flash_counts()
+    with OpCost() as real:
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    launched = flash_counts()[:2]
+    with FakeTensorMode():
+        fake_state = init_train_state(
+            model, torch.Generator(device).manual_seed(TRAIN_SEED), opt_cfg)
+        fake_batch = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                      for k, v in batch.items()}
+        with OpCost() as fake:
+            step_fn(fake_state, fake_batch)
+    real, fake = real.record(), fake.record()
+    calls = tuple(fake["calls"].get(f"repro_torch.{op}", 0)
+                  for op in ("flash_attention", "flash_attention_bwd"))
+    tokens = batch["tokens"].numel()
+    n = cfg.num_active_params()
+    flops, nbytes = real["flops_per_device"], real["bytes_per_device"]
+    roof_s = max(flops / roofline.PEAK_FLOPS, nbytes / roofline.HBM_BW)
+    emit("launch", part="b: op counts", cell=f"{cfg.name}-train",
+         real={k: real[k] for k in LAUNCH_KEYS + ("num_ops",)},
+         fake={k: fake[k] for k in LAUNCH_KEYS + ("num_ops",)},
+         equal=(real == fake), flash_launches=launched,
+         fake_flash_calls=calls, seconds=time.perf_counter() - t0)
+    emit("launch", part="c: roofline", cell=f"{cfg.name}-train",
+         s_per_step=s_per_step, counted_flops=flops, counted_bytes=nbytes,
+         flops_per_s=flops / s_per_step,
+         model_flops=6.0 * n * tokens,
+         mfu=6.0 * n * tokens / (s_per_step * roofline.PEAK_FLOPS),
+         roofline_s=roof_s, roofline_fraction=roof_s / s_per_step,
+         peak_flops=roofline.PEAK_FLOPS, hbm_bw=roofline.HBM_BW,
+         card=card_line(), torch=torch.__version__)
+    if real["flops_per_device"] != fake["flops_per_device"] or \
+            real["bytes_per_device"] != fake["bytes_per_device"]:
+        raise AssertionError(f"launch: the card's count {real} differs from "
+                             f"the fake tensors' {fake}")
+    want = (2 * cfg.n_layers, cfg.n_layers)
+    if launched != want or calls != want:
+        raise AssertionError(f"launch: {launched} flash launches and {calls} "
+                             f"counted fake calls, not {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -3792,10 +4093,10 @@ MOE_ARCH = "moonshot-v1-16b-a3b"
 #: hybrid models; users serve long prompts, and the SSM's and hybrid's
 #: decode state does not grow with context (the hybrid's KV caches do).
 SLOT_ARCHS = (MOE_ARCH, "rwkv6-3b", "zamba2-2.7b")
-SLOTS, SLOT_REQUESTS, SLOT_PROMPT, SLOT_NEW_TOKENS = 4, 8, 2048, 32
+SLOTS, SLOT_REQUESTS, SLOT_PROMPT, SLOT_NEW_TOKENS = 4, 8, 2048, 16
 #: family_full's embedding-input cells: (requests, positions, new tokens).
-EMBED_CELLS = {"paligemma-3b": (4, 2048, 32),
-               "musicgen-large": (4, 1024, 64)}
+EMBED_CELLS = {"paligemma-3b": (4, 2048, 16),
+               "musicgen-large": (4, 1024, 32)}
 
 
 def attention_calls(cfg) -> int:
@@ -5747,10 +6048,12 @@ def phase_router_full(device, rows: int = SF1_ROWS, tenants: int = 16,
 # ---------------------------------------------------------------------------
 
 FORECAST_CELL = "fleet16-sf1-forecast-cyclic_diurnal"
-FORECAST_QUERIES = 750        # BENCH_forecast.json's 1,500, cut for the
+FORECAST_QUERIES = 400        # BENCH_forecast.json's 1,500, cut for the
 #                               whole script's time (the training phases)
 FORECAST_SCENARIO_SEED = 7    # benchmarks/bench_forecast.py: bench_cell seed
-FORECAST_WORKERS = 4          # forecast_parity's job processes
+FORECAST_WORKERS = 4          # the spawned processes of ingest_parity's
+#                               file section, reorg_parity, router_parity,
+#                               fleet_parity and forecast_parity
 FORECAST_LABELS = ("unlimited", "k1", "bucket")
 #: The scenarios without pre-positions whose unlimited full-section row
 #: forecast_parity runs (all eight before the family phases; the five
@@ -6150,9 +6453,56 @@ def forecast_jobs(device, bench: dict, churn_rows: int) -> list:
     return jobs
 
 
-def phase_forecast_parity(device, workers: int = FORECAST_WORKERS,
-                          churn_rows: int = 3_000, bench=None,
-                          meanwhile=None) -> tuple:
+def start_forecast_parity(device, pool, workers: int = FORECAST_WORKERS,
+                          churn_rows: int = 3_000, bench=None):
+    """Submits forecast_parity's jobs now to ``pool``, ``workers`` spawned
+    processes (the loops are the host's), so they run beside the parity
+    phases, which time nothing; returns a function that waits for them and
+    runs phase_forecast_parity's checks."""
+    bench = bench or json.loads((ROOT / "BENCH_forecast.json").read_text())
+    t0 = time.perf_counter()
+    jobs = forecast_jobs(device, bench, churn_rows)
+    futures = [pool.submit(forecast_job, job) for job in jobs]
+
+    def result() -> dict:
+        t1 = time.perf_counter()
+        results = [f.result() for f in futures]
+        return phase_forecast_parity(device, bench, jobs, results, workers,
+                                     t0, waited=time.perf_counter() - t1)
+    return result
+
+
+def parity_job(name: str, device_type: str) -> dict:
+    """Runs the phase ``name`` (reorg_parity or router_parity) whole in a
+    spawned worker, on one thread; its lines go to the shared stdout.
+    Returns its card launches and seconds."""
+    import torch
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    run = {"reorg_parity": phase_reorg_parity,
+           "router_parity": phase_router_parity}[name]
+    return {"launches": run(torch.device(device_type)),
+            "seconds": time.perf_counter() - t0}
+
+
+def start_parity_job(device, pool, name: str):
+    """Submits parity_job(name) now to ``pool``; returns a function that
+    waits for it and gives its result."""
+    return pool.submit(parity_job, name, device.type).result
+
+
+def start_host_pool(workers: int = FORECAST_WORKERS):
+    """The spawned processes that run ingest_parity's file section,
+    router_parity and reorg_parity, fleet_parity's and forecast_parity's
+    jobs, in the order they are submitted."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    return cf.ProcessPoolExecutor(max_workers=workers,
+                                  mp_context=mp.get_context("spawn"))
+
+
+def phase_forecast_parity(device, bench: dict, jobs: list, results: list,
+                          workers: int, t0: float, waited: float) -> dict:
     """(a) BENCH_forecast.json's forecast_smoke section in full, card ==
     file and card == CPU; (b) the full section's rows with pre-positions
     (gradual_drift and cyclic_diurnal, every scheduler) and the unlimited
@@ -6161,21 +6511,10 @@ def phase_forecast_parity(device, workers: int = FORECAST_WORKERS,
     incremental fleet on both planner lanes equal run, card == CPU, then a
     cross-process migration of a tenant holding a live grown state equal
     to the inline router, and a saved forecast engine that stays one
-    table.  The jobs all run in ``workers`` spawned processes (the loops
-    are the host's), so this process touches nothing on the card; it runs
-    ``meanwhile()`` if given (the script passes the tpch-sf10 table's build, which leaves
-    the card idle).  Returns the card's launches and what ``meanwhile``
-    returned."""
-    import concurrent.futures as cf
-    import multiprocessing as mp
-    bench = bench or json.loads((ROOT / "BENCH_forecast.json").read_text())
-    t0 = time.perf_counter()
-    jobs = forecast_jobs(device, bench, churn_rows)
-    with cf.ProcessPoolExecutor(max_workers=workers,
-                                mp_context=mp.get_context("spawn")) as pool:
-        futures = [pool.submit(forecast_job, job) for job in jobs]
-        extra = meanwhile() if meanwhile is not None else None
-        results = [f.result() for f in futures]
+    table.  ``results`` are forecast_job's for ``jobs``, which ran in
+    ``workers`` spawned processes from ``t0`` on (start_forecast_parity);
+    ``waited`` is how long this process waited for them.  Returns the
+    card's launches."""
     checks = results[0]
     emit("forecast_parity", case="torch.save of a forecast engine with a "
          "live grown state", **checks["spool"])
@@ -6264,8 +6603,9 @@ def phase_forecast_parity(device, workers: int = FORECAST_WORKERS,
                              f"{launched}")
     emit("forecast_parity", jobs=len(jobs), workers=workers,
          job_seconds=sum(r["seconds"] for r in results),
-         launches_card=launched, seconds=time.perf_counter() - t0)
-    return launched, extra
+         launches_card=launched, seconds=time.perf_counter() - t0,
+         waited_seconds=waited)
+    return launched
 
 
 class PruningAudit:
@@ -6503,8 +6843,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)} "
                          f"(env and kernel always run)")
-    ap.add_argument("--queries", type=int, default=FULL_QUERIES,
-                    help=f"full-width query count (>= {MIN_QUERIES})")
+    ap.add_argument("--queries", type=int, default=QUERIES,
+                    help=f"full-width query count (>= {MIN_QUERIES}; the "
+                         f"cell's is {FULL_QUERIES})")
     ap.add_argument("--process-arm", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.process_arm:
@@ -6521,6 +6862,9 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.kernels import _backend
 
+    # The tpch-sf10 table is drawn on the host from now on.
+    sf10_host = (start_sf10_inputs(torch.device("cuda", 0), args.queries)
+                 if phases & {"full", "zorder_full"} else None)
     device = torch.device("cuda", 0)
     card = card_line()
     clock = [time.perf_counter()]
@@ -6545,6 +6889,7 @@ def main(argv=None) -> int:
          zorder_sass=zorder_sass)
     train_host = (start_train_parity_cpu() if "train_parity" in phases
                   else None)
+    launch_host = start_launch_dryrun() if "launch" in phases else None
     done("env")
 
     kernels = {"pruning": phase_kernel(device), **phase_fleet_kernels(device),
@@ -6554,15 +6899,33 @@ def main(argv=None) -> int:
                "zorder": phase_zorder_kernel(device)}
     release(device)
     done("kernel")
+    # Work that times nothing runs from here beside the parity phases,
+    # which time nothing either: ingest_parity's file section,
+    # router_parity and reorg_parity whole, fleet_parity's and
+    # forecast_parity's jobs in spawned processes, whose results are read
+    # after the parity phases that stay here (train_parity among them, so
+    # this process has work while the workers finish).  This process runs
+    # on two threads meanwhile: the host's cores are the workers'.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    ingest_host = fleet_host = forecast_host = None
+    pooled = {}
+    if phases & {"fleet_parity", "reorg_parity", "ingest_parity",
+                 "router_parity", "forecast_parity"}:
+        pool = start_host_pool()
+        if "ingest_parity" in phases:
+            ingest_host = start_ingest_file(device, pool)
+        for name in ("router_parity", "reorg_parity"):
+            if name in phases:
+                pooled[name] = start_parity_job(device, pool, name)
+        if "fleet_parity" in phases:
+            fleet_host = start_fleet_parity(device, pool)
+        if "forecast_parity" in phases:
+            forecast_host = start_forecast_parity(device, pool)
+        pool.shutdown(wait=False)
     if "parity" in phases:
         phase_parity(device)
         done("parity")
-    if "fleet_parity" in phases:
-        phase_fleet_parity(device)
-        done("fleet_parity")
-    if "reorg_parity" in phases:
-        phase_reorg_parity(device)
-        done("reorg_parity")
     if "serve_parity" in phases:
         phase_serve_parity(device)
         release(device)
@@ -6571,25 +6934,29 @@ def main(argv=None) -> int:
         phase_zorder_parity(device)
         done("zorder_parity")
     if "ingest_parity" in phases:
-        phase_ingest_parity(device)
+        phase_ingest_parity(device, file_host=ingest_host)
         release(device)
         done("ingest_parity")
-    if "router_parity" in phases:
-        phase_router_parity(device)
+    if "train_parity" in phases:
+        phase_train_parity(device, host=train_host)
         release(device)
-        done("router_parity")
-    sf10 = None
+        done("train_parity")
+    for name, host in pooled.items():
+        host()
+        done(f"{name} (waiting for its worker)")
+    if "fleet_parity" in phases:
+        phase_fleet_parity(device, host=fleet_host)
+        done("fleet_parity (waiting for its workers)")
     if "forecast_parity" in phases:
-        _, sf10 = phase_forecast_parity(device, meanwhile=(
-            (lambda: sf10_inputs(device, args.queries))
-            if phases & {"full", "zorder_full"} else None))
-        done("forecast_parity (and the tpch-sf10 table)")
+        forecast_host()
+        done("forecast_parity (waiting for its workers)")
+    torch.set_num_threads(threads)
     family_host = (start_family_parity_cpu() if "family_parity" in phases
                    else None)
     runs = {}
     if phases & {"full", "zorder_full"}:
-        data, stream = sf10 or sf10_inputs(device, args.queries)
-        del sf10
+        data, stream = sf10_host()
+        torch.cuda.reset_peak_memory_stats(device)
         if "full" in phases:
             runs["tpch-sf10-oreo"] = {"pruning": phase_full(device, data,
                                                             stream)}
@@ -6627,12 +6994,9 @@ def main(argv=None) -> int:
             runs[f"{FORECAST_CELL}/{arm}"] = counts
         release(device)
         done("forecast_full")
-    if "train_parity" in phases:
-        phase_train_parity(device, host=train_host)
-        release(device)
-        done("train_parity")
-    if "train_full" in phases:
-        runs[f"{TRAIN_ARCH}-train"] = cell_train(device)
+    if phases & {"train_full", "launch"}:
+        runs[f"{TRAIN_ARCH}-train"] = cell_train(
+            device, launch="launch" in phases)
         release(device)
         done("train_full")
     if "family_parity" in phases:
@@ -6643,6 +7007,9 @@ def main(argv=None) -> int:
         runs.update(phase_family_full(device))
         release(device)
         done("family_full")
+    if "launch" in phases:
+        phase_launch(launch_host)
+        done("launch")
     for name, summary in kernels.items():
         summary["launches"] = (sum(r.get(name, 0) for r in runs.values())
                                if runs else None)

@@ -11,7 +11,7 @@ audio, SSM (RWKV-6) and hybrid (Mamba-2 with shared attention) families.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +153,31 @@ def get_arch(name: str, smoke: bool = False) -> ArchConfig:
 def list_archs() -> List[str]:
     _ensure_loaded()
     return sorted(_REGISTRY)
+
+
+def runnable_cells() -> List[Tuple[str, str]]:
+    """All (arch, shape) dry-run cells; long_500k only for sub-quadratic
+    archs (full-attention archs skip it)."""
+    _ensure_loaded()
+    cells = []
+    for arch in list_archs():
+        cfg = _REGISTRY[arch]
+        for shape in SHAPES.values():
+            if shape.name == "long_500k" and not cfg.sub_quadratic:
+                continue
+            cells.append((arch, shape.name))
+    return cells
+
+
+def skipped_cells() -> List[Tuple[str, str, str]]:
+    _ensure_loaded()
+    out = []
+    for arch in list_archs():
+        cfg = _REGISTRY[arch]
+        if not cfg.sub_quadratic:
+            out.append((arch, "long_500k",
+                        "full quadratic attention at 524288 tokens"))
+    return out
 
 
 _LOADED = False

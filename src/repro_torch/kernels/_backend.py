@@ -42,9 +42,13 @@ build_logs: Dict[str, str] = {}
 
 def resolve_device(device: Union[None, str, torch.device] = None
                    ) -> torch.device:
-    """``None`` means the card; a CUDA request without a card raises."""
+    """``None`` means the card; a CUDA request without a card raises,
+    except under a :class:`FakeTensorMode` (the dry run), whose CUDA
+    tensors have no memory and launch nothing."""
+    from torch._guards import detect_fake_mode
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() and \
+            detect_fake_mode() is None:
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default, and "
             "torch.cuda.is_available() is false; pass device='cpu' to run "

@@ -17,18 +17,25 @@ bfloat16 input.  A launch error raises; nothing retries the other route.
 :func:`flash_attention_bwd` launches the backward kernel (the gradient of
 the same function, which the TPU kernel never had) on CUDA tensors and runs
 the plain backward on CPU tensors.  It has the same two routes, chosen the
-same way from its eight operands.  :class:`FlashAttentionFn` joins the
-two for autograd: :func:`flash_attention` takes it only when grad is
-enabled and an input requires grad, and otherwise launches exactly as it
-does for serving.
+same way from its eight operands.
+
+Both kernels are PyTorch operators (``torch.ops.repro_torch.flash_attention``
+and ``torch.ops.repro_torch.flash_attention_bwd``, registered with
+:func:`torch.library.custom_op`), so the dispatcher sees every call: a
+dispatch mode counts them (:mod:`repro_torch.launch.op_cost`), fake or meta
+tensors reach only their shape functions (which launch nothing), each has a
+FLOP formula in :mod:`torch.utils.flop_counter`'s registry (4 dh forward
+and 10 dh backward per visible (query, key) pair), and the forward's
+autograd formula is the backward operator.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _backend
 
@@ -164,19 +171,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int (a tensor is read back to the host) and is clamped to ``[0, S]``.
     ``route`` (``tensor_core`` or ``scalar``) overrides :func:`_route`'s
     choice; a route that cannot take the operands raises and launches
-    nothing.  With grad enabled and an input that requires grad, the call
-    goes through :class:`FlashAttentionFn`, whose backward is
-    :func:`flash_attention_bwd`.
+    nothing.  The call goes through the operator
+    ``torch.ops.repro_torch.flash_attention``, whose gradient is
+    :func:`flash_attention_bwd`'s operator.
     """
     _check(q, k, v)
     if kv_valid_len is not None:
         kv_valid_len = int(kv_valid_len)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, prefix_len,
-                                      kv_valid_len, q_offset, route)
-    return _forward(q, k, v, causal, prefix_len, kv_valid_len, q_offset,
-                    route)
+    return _flash_op(q, k, v, bool(causal), int(prefix_len), kv_valid_len,
+                     int(q_offset), route)
 
 
 def _forward(q, k, v, causal, prefix_len, kv_valid_len, q_offset, route):
@@ -247,6 +250,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             f"{t.device}, q is {q.dtype} on {q.device}")
     if kv_valid_len is not None:
         kv_valid_len = int(kv_valid_len)
+    return _flash_bwd_op(q, k, v, out, dout, bool(causal), int(prefix_len),
+                         kv_valid_len, int(q_offset), route)
+
+
+def _backward(q, k, v, out, dout, causal, prefix_len, kv_valid_len,
+              q_offset, route):
+    """The backward launch (or, on CPU tensors, the plain backward)."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, out, dout, causal=causal,
                                        prefix_len=prefix_len,
@@ -294,25 +304,87 @@ flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_by_route = {route: 0 for route in ROUTES}
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention for autograd: the forward launches the kernel (or
-    runs the plain version on CPU tensors) and saves ``q, k, v, out``; the
-    backward is :func:`flash_attention_bwd`.  Arguments after ``v`` are
-    :func:`flash_attention`'s."""
+# ---------------------------------------------------------------------------
+# The kernels as PyTorch operators
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, prefix_len, kv_valid_len, q_offset,
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, prefix_len: int, kv_valid_len: Optional[int],
+              q_offset: int, route: Optional[str]) -> torch.Tensor:
+    return _forward(q, k, v, causal, prefix_len, kv_valid_len, q_offset,
+                    route)
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, prefix_len, kv_valid_len, q_offset,
                 route):
-        out = _forward(q, k, v, causal, prefix_len, kv_valid_len, q_offset,
-                       route)
-        ctx.save_for_backward(q, k, v, out)
-        ctx.mask = (causal, prefix_len, kv_valid_len, q_offset)
-        return out
+    return q.new_empty(q.shape)
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.mask)
-        return dq, dk, dv, None, None, None, None, None
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, dout: torch.Tensor, causal: bool,
+                  prefix_len: int, kv_valid_len: Optional[int],
+                  q_offset: int, route: Optional[str]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _backward(q, k, v, out, dout, causal, prefix_len, kv_valid_len,
+                     q_offset, route)
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, out, dout, causal, prefix_len, kv_valid_len,
+                    q_offset, route):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(k.shape)
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    q, k, v, causal, prefix_len, kv_valid_len, q_offset, _ = inputs
+    ctx.save_for_backward(q, k, v, output)
+    ctx.mask = (causal, prefix_len, kv_valid_len, q_offset)
+
+
+def _flash_grad(ctx, dout):
+    q, k, v, out = ctx.saved_tensors
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    dq, dk, dv = _flash_bwd_op(q, k, v, out, dout, *ctx.mask, None)
+    return dq, dk, dv, None, None, None, None, None
+
+
+_flash_op.register_autograd(_flash_grad, setup_context=_setup_context)
+
+
+def visible_pairs(t: int, s: int, causal: bool, prefix_len: int,
+                  kv_valid_len: Optional[int], q_offset: int) -> int:
+    """(query, key) pairs the mask lets through for one (batch, head): the
+    count behind both kernels' operation bounds."""
+    limit = s if kv_valid_len is None else min(max(int(kv_valid_len), 0), s)
+    if not causal:
+        return t * limit
+    pos = np.arange(q_offset, q_offset + t, dtype=np.int64)
+    return int(np.clip(np.maximum(pos + 1, prefix_len), 0, limit).sum())
+
+
+def _pair_flops(per_pair: int, q_shape, k_shape, causal, prefix_len,
+                kv_valid_len, q_offset) -> int:
+    b, t, hq, dh = q_shape
+    return per_pair * dh * b * hq * visible_pairs(
+        t, k_shape[1], causal, prefix_len, kv_valid_len, q_offset)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, prefix_len, kv_valid_len,
+                 q_offset, route, out_shape=None, **kwargs) -> int:
+    """4 dh per visible (query, key) pair: Q K^T and P V."""
+    return _pair_flops(4, q_shape, k_shape, causal, prefix_len, kv_valid_len,
+                       q_offset)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, dout_shape,
+                     causal, prefix_len, kv_valid_len, q_offset, route,
+                     out_shape=None, **kwargs) -> int:
+    """10 dh per visible (query, key) pair: Q K^T, dO V^T, dV, dQ, dK."""
+    return _pair_flops(10, q_shape, k_shape, causal, prefix_len,
+                       kv_valid_len, q_offset)

@@ -22,10 +22,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import mamba2, sharding, transformer
 
 
 class Hybrid(nn.Module):
@@ -48,6 +47,17 @@ def n_groups(cfg) -> int:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
                          f"into groups of {cfg.attn_every}")
     return cfg.n_layers // cfg.attn_every
+
+
+def param_specs(cfg) -> Dict[str, tuple]:
+    """Every parameter's logical spec, keyed by its name in
+    ``named_parameters()``."""
+    shared = {f"shared_attn.{k}": v
+              for k, v in transformer.layer_specs(cfg).items()}
+    return {"embed": (None, "model"),
+            **transformer.stacked_specs("mamba", cfg.n_layers,
+                                        mamba2.layer_specs(cfg)),
+            **shared, "final_norm": (None,), "head": ("fsdp", "model")}
 
 
 def init_params(generator: torch.Generator, cfg) -> Hybrid:
@@ -77,20 +87,24 @@ def hidden(params: Hybrid, cfg, batch: Dict,
            remat: bool = True) -> torch.Tensor:
     """Full-sequence forward up to the final norm; with ``remat`` and grad
     enabled each group is recomputed in the backward."""
-    x = transformer._gather_embed(params, batch["tokens"])
+    x = _embed(params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = remat and torch.is_grad_enabled()
     for g in range(n_groups(cfg)):
         args = (params.shared_attn, _group(params, cfg, g), x, cfg,
                 positions)
-        x = (checkpoint(_group_out, *args, use_reentrant=False) if remat
-             else _group_out(*args))
+        x = L.remat(_group_out, *args) if remat else _group_out(*args)
     return L.rms_norm(x, params.final_norm)
+
+
+def _embed(params: Hybrid, batch: Dict) -> torch.Tensor:
+    x = transformer._gather_embed(params, batch["tokens"])
+    return sharding.constrain(x, "batch", None, None)
 
 
 def forward(params: Hybrid, cfg, batch: Dict,
             remat: bool = True) -> torch.Tensor:
-    return hidden(params, cfg, batch, remat) @ params.head
+    return transformer._logits(hidden(params, cfg, batch, remat), params)
 
 
 def prefill(params: Hybrid, cfg, batch: Dict,
@@ -98,7 +112,7 @@ def prefill(params: Hybrid, cfg, batch: Dict,
     """The last position's logits (B, 1, V), each shared-block
     application's k/v padded with zeros to ``max_len`` positions, and every
     Mamba-2 layer's state."""
-    x = transformer._gather_embed(params, batch["tokens"])
+    x = _embed(params, batch)
     B, T = x.shape[0], x.shape[1]
     S = max(max_len or T, T)
     positions = torch.arange(T, device=x.device)
@@ -109,8 +123,9 @@ def prefill(params: Hybrid, cfg, batch: Dict,
         x, kv = transformer._layer_apply(params.shared_attn, x, cfg,
                                          positions, prefix_len=0)
         if ks is None:
-            ks = torch.zeros((G, B, S, cfg.n_kv_heads, cfg.head_dim),
-                             dtype=kv["k"].dtype, device=x.device)
+            ks = sharding.zeros((G, B, S, cfg.n_kv_heads, cfg.head_dim),
+                                (None, "batch", None, None, None),
+                                kv["k"].dtype, x.device)
             vs = torch.zeros_like(ks)
         ks[g, :, :T] = kv["k"]
         vs[g, :, :T] = kv["v"]
@@ -121,7 +136,7 @@ def prefill(params: Hybrid, cfg, batch: Dict,
                                                                    "h")}
     cache = {"k": ks, "v": vs, "mamba": mstates, "index": T}
     x = L.rms_norm(x, params.final_norm)
-    return x[:, -1:] @ params.head, cache
+    return transformer._logits(x[:, -1:], params), cache
 
 
 def decode_step(params: Hybrid, cfg, batch: Dict, cache: Dict
@@ -130,7 +145,7 @@ def decode_step(params: Hybrid, cfg, batch: Dict, cache: Dict
     the Mamba-2 layers from their states; every part of the cache is
     updated in place.  Returns logits (B, 1, V) and the cache with
     ``index + 1``."""
-    x = transformer._gather_embed(params, batch["tokens"])
+    x = _embed(params, batch)
     idx = int(cache["index"])
     positions = torch.full((x.shape[0], 1), idx, dtype=torch.int64,
                            device=x.device)
@@ -146,8 +161,9 @@ def decode_step(params: Hybrid, cfg, batch: Dict, cache: Dict
             for n in mstates:
                 mstates[n][i] = st[n]
     x = L.rms_norm(x, params.final_norm)
-    return x @ params.head, {"k": cache["k"], "v": cache["v"],
-                             "mamba": mstates, "index": idx + 1}
+    return transformer._logits(x, params), {
+        "k": cache["k"], "v": cache["v"], "mamba": mstates,
+        "index": idx + 1}
 
 
 def cache_spec(cfg, batch: int, max_len: int) -> Dict:
@@ -157,3 +173,14 @@ def cache_spec(cfg, batch: int, max_len: int) -> Dict:
     mamba = {n: ((cfg.n_layers,) + shape, dtype)
              for n, (shape, dtype) in mamba2.state_spec(cfg, batch).items()}
     return {"k": kv, "v": kv, "mamba": mamba, "index": ((), torch.int64)}
+
+
+def cache_specs(cfg, seq_axes=("model",)) -> Dict:
+    """Logical specs of :func:`cache_spec`'s tensors: the KV caches'
+    sequence on ``seq_axes``, each Mamba-2 state stacked on the layers'
+    axis."""
+    kv = transformer.kv_cache_spec(seq_axes)
+    return {"k": kv, "v": kv,
+            "mamba": {n: (None,) + s
+                      for n, s in mamba2.state_specs(cfg).items()},
+            "index": ()}

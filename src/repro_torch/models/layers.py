@@ -15,10 +15,16 @@ the Pallas kernel, but ``attention_apply`` calls the jnp version directly;
 here every prefill attention on the card runs the kernel.  Decode
 attention (one query over the cache) stays plain PyTorch, as the reference
 computes it in jnp outside any kernel.  Training differentiates through
-the kernel's autograd Function (its backward is a kernel too); remat is the
-transformer's.  The reference's sharding constraints are no-ops on one
-card and are dropped; its remat policy and spec helpers belong to the
-launch slice.
+the kernel's operator (its backward is a kernel too).
+
+The spec helpers (:func:`attention_specs`, :func:`mlp_specs`,
+:func:`moe_specs`) give each weight's logical sharding, and the
+reference's :func:`~repro_torch.models.sharding.constrain` calls stand at
+its sites: no-ops without a mesh.  Under a mesh the attention kernel runs
+on each device's shard through ``local_map`` (:func:`_attend`).  The remat
+policy (:func:`set_remat_policy`) picks what a block's checkpoint keeps:
+``"nothing"`` (recompute the whole block) or ``"dots"`` (keep the 2-D
+weight products).
 
 The MoE keeps the reference's sort-based dispatch and its capacity drops
 token for token (:func:`moe_route`): ``jax.lax.top_k``'s order (the lower
@@ -32,6 +38,8 @@ to XLA outside any kernel.
 """
 from __future__ import annotations
 
+import functools
+import types
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -42,6 +50,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: F401
     flash_attention)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     AttnBlocking, get_attn_blocking, set_attn_blocking)
+from repro_torch.models import sharding
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -138,6 +147,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, _, Hq, dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     g = Hq // Hkv
+    # Under a mesh the cache's sequence holds the tensor axis: the query's
+    # heads are gathered whole (the reference leaves this to its compiler).
+    q = sharding.constrain(q, "batch", None, None, None)
     qr = q.reshape(B, Hkv, g, dh)
     s = torch.einsum("bhgd,bkhd->bhgk", qr.float(),
                      k_cache.float()) * (dh ** -0.5)
@@ -158,6 +170,17 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     embeddings into a float32 copy), as each of the reference's products
     promotes its operands."""
     return x.to(torch.promote_types(x.dtype, w.dtype)) @ w
+
+
+def attention_specs(cfg) -> Dict:
+    specs = {
+        "wq": ("fsdp", "model"), "wk": ("fsdp", "model"),
+        "wv": ("fsdp", "model"), "wo": ("model", "fsdp"),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = (None,)
+        specs["k_norm"] = (None,)
+    return specs
 
 
 class Attention(nn.Module):
@@ -195,14 +218,23 @@ def attention_apply(params: Attention, x: torch.Tensor, cfg,
     """
     B, T, d = x.shape
     dh = cfg.head_dim
-    q = _matmul(x, params.wq).reshape(B, T, cfg.n_heads, dh)
-    k = _matmul(x, params.wk).reshape(B, T, cfg.n_kv_heads, dh)
-    v = _matmul(x, params.wv).reshape(B, T, cfg.n_kv_heads, dh)
+    # Sequence parallelism: the sequence is gathered before the
+    # token-mixing op (a no-op otherwise).
+    x = sharding.constrain(x, "batch", None, None)
+    q = sharding.split_last(_matmul(x, params.wq), cfg.n_heads, dh)
+    # k and v are replicated over the tensor axis before the (Hkv, dh)
+    # split (the reference constrains them after it): Hkv may be smaller
+    # than the axis.
+    k = sharding.constrain(_matmul(x, params.wk), "batch", None, None)
+    v = sharding.constrain(_matmul(x, params.wv), "batch", None, None)
+    k = k.reshape(B, T, cfg.n_kv_heads, dh)
+    v = v.reshape(B, T, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = rms_norm(q, params.q_norm)
         k = rms_norm(k, params.k_norm)
     q = rope(q, positions, cfg.rope_base, cfg.rope_mode)
     k = rope(k, positions, cfg.rope_base, cfg.rope_mode)
+    q = sharding.constrain(q, "batch", None, "model", None)
 
     if cache is not None:
         idx = int(cache["index"])
@@ -210,15 +242,62 @@ def attention_apply(params: Attention, x: torch.Tensor, cfg,
         if not 0 <= idx <= k_cache.shape[1] - T:
             raise IndexError(f"decode index {idx} is past the cache's "
                              f"{k_cache.shape[1]} positions")
-        k_cache[:, idx:idx + T] = k
-        v_cache[:, idx:idx + T] = v
+        sharding.write_seq(k_cache, k, idx)
+        sharding.write_seq(v_cache, v, idx)
         out = decode_attention(q, k_cache, v_cache, valid_len=idx + 1)
+        out = out.reshape(B, T, cfg.n_heads * dh)
         new_cache = {"k": k_cache, "v": v_cache, "index": idx + 1}
     else:
-        out = flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+        out = _attend(q, k, v, causal, prefix_len)
         new_cache = {"k": k, "v": v}
-    out = out.reshape(B, T, cfg.n_heads * dh)
-    return out @ params.wo, new_cache
+    return sharding.constrain_residual(out @ params.wo), new_cache
+
+
+def _kv_repeats(hq: int, hkv: int, m: int) -> int:
+    """How many times to repeat each kv head so that the kv heads split
+    over ``m`` devices as the query heads do: the least r with Hkv r a
+    multiple of m that divides the group Hq / Hkv (the whole group when
+    none does)."""
+    g = hq // hkv
+    for r in range(1, g + 1):
+        if (hkv * r) % m == 0 and g % r == 0:
+            return r
+    return g
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            prefix_len: int) -> torch.Tensor:
+    """:func:`flash_attention` of (B, T, H, dh) operands, its output's heads
+    merged: (B, T, H dh).  Under a mesh the kernel runs on each device's
+    shard through ``local_map``: batch on the data axes and heads on the
+    tensor axis (where the axis divides the query heads; otherwise the
+    heads stay whole), the sequence whole; the heads are merged there too,
+    so no sharded (H, dh) split meets autograd.  Each kv head is repeated so
+    that a device's query heads find theirs (:func:`_kv_repeats`)."""
+    B, T, hq, dh = q.shape
+    if not sharding.is_sharded(q):
+        out = flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+        return out.reshape(B, T, hq * dh)
+    from torch.distributed.tensor.experimental import local_map
+    ctx = sharding.get_ctx()
+    mesh = ctx.mesh
+    m = mesh.size(mesh.mesh_dim_names.index(ctx.model_axis))
+    hkv = k.shape[2]
+    heads = "model" if hq % m == 0 else None
+    if heads and hkv % m:
+        r = _kv_repeats(hq, hkv, m)
+        k = torch.repeat_interleave(k, r, dim=2)
+        v = torch.repeat_interleave(v, r, dim=2)
+    q, k, v = (sharding.constrain(x, "batch", None, heads, None)
+               for x in (q, k, v))
+
+    def local(a, b, c):
+        out = flash_attention(a, b, c, causal=causal, prefix_len=prefix_len)
+        return out.reshape(out.shape[0], out.shape[1], -1)
+    f = local_map(local, out_placements=list(q.placements),
+                  in_placements=(q.placements, k.placements, v.placements),
+                  device_mesh=mesh)
+    return f(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +305,13 @@ def attention_apply(params: Attention, x: torch.Tensor, cfg,
 # ---------------------------------------------------------------------------
 
 GATED = ("swiglu", "geglu")
+
+
+def mlp_specs(cfg) -> Dict:
+    if cfg.act in GATED:
+        return {"w_gate": ("fsdp", "model"), "w_up": ("fsdp", "model"),
+                "w_down": ("model", "fsdp")}
+    return {"w_in": ("fsdp", "model"), "w_out": ("model", "fsdp")}
 
 
 class MLP(Weights):
@@ -255,18 +341,30 @@ def _act(name: str, h: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(params: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
+    x = sharding.constrain(x, "batch", None, None)
     if cfg.act == "swiglu":
         h = F.silu(x @ params.w_gate) * (x @ params.w_up)
-        return h @ params.w_down
-    if cfg.act == "geglu":
+        out = h @ params.w_down
+    elif cfg.act == "geglu":
         h = F.gelu(x @ params.w_gate, approximate="tanh") * (x @ params.w_up)
-        return h @ params.w_down
-    return _act(cfg.act, x @ params.w_in) @ params.w_out
+        out = h @ params.w_down
+    else:
+        out = _act(cfg.act, x @ params.w_in) @ params.w_out
+    return sharding.constrain_residual(out)
 
 
 # ---------------------------------------------------------------------------
 # MoE (top-k routing, sort-based dispatch)
 # ---------------------------------------------------------------------------
+
+def moe_specs(cfg) -> Dict:
+    return {
+        "router": (None, None),
+        "w_gate": ("model", "fsdp", None),
+        "w_up": ("model", "fsdp", None),
+        "w_down": ("model", None, "fsdp"),
+    }
+
 
 class MoE(nn.Module):
     """``router`` (d, E) in float32; ``w_gate``/``w_up`` (E, d, fe) and
@@ -307,12 +405,77 @@ def _expert_ffn(params: MoE, xb: torch.Tensor, act: str) -> torch.Tensor:
     return torch.einsum("...ecf,efd->...ecd", h, params.w_down)
 
 
+def _experts(params: MoE, buf: torch.Tensor, act: str) -> torch.Tensor:
+    """:func:`_expert_ffn` of the capacity buffer.  Under a mesh each
+    device runs the experts it holds on its slots through ``local_map``,
+    each expert's weights gathered over their fsdp axis first."""
+    if not sharding.is_sharded(buf):
+        return _expert_ffn(params, buf, act)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    experts = Shard(buf.ndim - 3)
+    pl = list(buf.placements)
+    w_pl = [Shard(0) if p == experts else Replicate() for p in pl]
+
+    def local(b, g, u, d):
+        w = types.SimpleNamespace(w_gate=g, w_up=u, w_down=d)
+        return _expert_ffn(w, b, act)
+    f = local_map(local, out_placements=pl,
+                  in_placements=(pl, w_pl, w_pl, w_pl),
+                  device_mesh=buf.device_mesh, redistribute_inputs=True)
+    return f(buf, params.w_gate, params.w_up, params.w_down)
+
+
 # Module-level capacity knob, as the reference's.
 MOE_OPTIONS = {"capacity_factor": 1.25}
 
 
 def set_moe_capacity_factor(cf: float) -> None:
     MOE_OPTIONS["capacity_factor"] = cf
+
+
+# Remat policy of a block's checkpoint: "nothing" (keep only the block's
+# input, recompute the rest) or "dots" (keep the 2-D weight products'
+# outputs as well: no recomputed product in the backward, more memory).
+REMAT_OPTIONS = {"policy": "nothing"}
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def set_remat_policy(policy: str) -> None:
+    if policy not in ("nothing", "dots"):
+        raise ValueError(f"remat policy {policy!r} is not 'nothing' or "
+                         f"'dots'")
+    REMAT_OPTIONS["policy"] = policy
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy():
+    """The ``context_fn`` of :func:`torch.utils.checkpoint.checkpoint` for
+    the policy set: None for ``"nothing"``; for ``"dots"`` selective
+    checkpointing that saves ``aten.mm``/``aten.addmm`` outputs (the
+    reference's ``checkpoint_dots_with_no_batch_dims``: batched products
+    and attention are recomputed)."""
+    if REMAT_OPTIONS["policy"] != "dots":
+        return None
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return functools.partial(create_selective_checkpoint_contexts,
+                             _save_dots)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint with the policy
+    set."""
+    from torch.utils.checkpoint import checkpoint
+    context_fn = remat_policy()
+    if context_fn is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -364,16 +527,38 @@ def moe_route(logits: torch.Tensor, k: int, capacity: int) -> Dict:
             "starts": starts, "counts": ends - starts}
 
 
+_ROUTE_KEYS = ("expert_idx", "sort_idx", "sorted_expert", "sorted_token",
+               "sorted_gate", "keep", "dest", "starts", "counts")
+
+
+def _route(logits: torch.Tensor, k: int, capacity: int) -> Dict:
+    """:func:`moe_route`; under a mesh each device routes its own groups
+    (``local_map`` over the groups' axis: the sort stays local to the data
+    shard, as in the reference)."""
+    if not sharding.is_sharded(logits):
+        return moe_route(logits, k, capacity)
+    from torch.distributed.tensor.experimental import local_map
+    logits = sharding.constrain(logits, "batch", None, None)
+    pl = list(logits.placements)
+    f = local_map(lambda lg: tuple(moe_route(lg, k, capacity)[key]
+                                   for key in _ROUTE_KEYS),
+                  out_placements=tuple([pl] * len(_ROUTE_KEYS)),
+                  in_placements=(pl,), device_mesh=logits.device_mesh)
+    return dict(zip(_ROUTE_KEYS, f(logits)))
+
+
 def _moe_groups(params: MoE, x: torch.Tensor, cfg,
-                capacity_factor: float) -> torch.Tensor:
+                capacity_factor: float,
+                buf_kinds=("batch", "model", None, None)) -> torch.Tensor:
     """Sort-based dispatch within each group of x (G, T, d): the capacity
-    buffer (G, E, C, d), the expert FFNs, and each token's k gated expert
-    outputs summed in sorted order."""
+    buffer (G, E, C, d), sharded by ``buf_kinds`` under a mesh, the expert
+    FFNs, and each token's k gated expert outputs summed in sorted
+    order."""
     m = cfg.moe
     G, T, d = x.shape
     E, k = m.num_experts, m.top_k
     C = capacity(T, cfg, capacity_factor)
-    r = moe_route(x.float() @ params.router.float(), k, C)
+    r = _route(x.float() @ params.router.float(), k, C)
     # Slot (e, c) holds sorted entry starts[e] + c while c < counts[e]
     # (then it also fits the capacity); the other slots stay 0.
     slot = torch.arange(C, device=x.device)
@@ -384,7 +569,9 @@ def _moe_groups(params: MoE, x: torch.Tensor, cfg,
     gathered = torch.gather(x, 1, token[..., None].expand(G, E * C, d))
     buf = torch.where(filled[..., None], gathered,
                       torch.zeros((), dtype=x.dtype, device=x.device))
-    out_buf = _expert_ffn(params, buf.reshape(G, E, C, d), cfg.act)
+    buf = sharding.constrain(buf.reshape(G, E, C, d), *buf_kinds)
+    out_buf = sharding.constrain(_experts(params, buf, cfg.act),
+                                 *buf_kinds)
     back = torch.gather(out_buf.reshape(G, E * C, d), 1,
                         r["dest"][..., None].expand(G, T * k, d))
     back = back * (r["sorted_gate"] * r["keep"]).to(x.dtype)[..., None]
@@ -411,18 +598,25 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg,
     convention).  Decode (T == 1) dispatches the whole batch as one group
     (:func:`_moe_flat`), so C = B k / E cf.
     """
+    # Dispatch sorts tokens per batch row: keep the full sequence local.
+    x = sharding.constrain(x, "batch", None, None)
     B, T, d = x.shape
     if capacity_factor is None:
         capacity_factor = MOE_OPTIONS["capacity_factor"]
     if T == 1:
-        return _moe_flat(params, x[:, 0], cfg, capacity_factor)[:, None]
-    return _moe_groups(params, x, cfg, capacity_factor)
+        out = _moe_flat(params, x[:, 0], cfg, capacity_factor)[:, None]
+    else:
+        out = _moe_groups(params, x, cfg, capacity_factor)
+    return sharding.constrain_residual(out)
 
 
 def _moe_flat(params: MoE, x: torch.Tensor, cfg,
               capacity_factor: float) -> torch.Tensor:
-    """Single-group dispatch over the flat (N, d) token batch (decode)."""
-    return _moe_groups(params, x[None], cfg, capacity_factor)[0]
+    """Single-group dispatch over the flat (N, d) token batch (decode):
+    experts sharded on the tensor axis and capacity slots on the data
+    axes."""
+    return _moe_groups(params, x[None], cfg, capacity_factor,
+                       buf_kinds=(None, "model", "batch", None))[0]
 
 
 def moe_aux_loss(params: MoE, x: torch.Tensor, cfg) -> torch.Tensor:

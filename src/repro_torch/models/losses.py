@@ -5,14 +5,17 @@ the vocab product and the cross entropy run per sequence chunk, each chunk
 under :func:`torch.utils.checkpoint.checkpoint`, so the backward recomputes
 a chunk's (B, chunk, V) logits instead of keeping every chunk's.  The target
 logit is read with :func:`torch.gather` where the reference sums a one-hot
-product (its form partitions over a sharded vocab); both give the logit
-itself.
+product; both give the logit itself.  On a vocab-sharded :class:`DTensor`
+the chunk takes the reference's one-hot form and a log-sum-exp from its
+max and sum, which partition over the shards.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import sharding
 
 
 def _targets(targets, device) -> torch.Tensor:
@@ -37,8 +40,19 @@ def _chunk_nll(h: torch.Tensor, head: torch.Tensor, t: torch.Tensor):
     operands' dtype and is cast to float32 after it, as the reference's."""
     logits = (h @ head).float()
     valid = (t >= 0).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, t.clamp_min(0)[..., None])[..., 0]
+    if sharding.is_sharded(logits):
+        # Reductions over the vocab's shards (small all-reduces) in place
+        # of gathering the chunk's logits.
+        logits = sharding.constrain(logits, "batch", None, "model")
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        lse = (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True))
+               )[..., 0]
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        hit = vocab == t.clamp_min(0)[..., None]
+        tgt = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, t.clamp_min(0)[..., None])[..., 0]
     return ((lse - tgt) * valid).sum(), valid.sum()
 
 

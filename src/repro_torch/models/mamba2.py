@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding
 
 CHUNK = 256
 
@@ -35,6 +36,16 @@ class Layer(L.Weights):
     """One layer: ``ln`` (d,), ``in_proj`` (d, 2 d_in + 2 ds + H),
     ``conv_w`` (cw, d_in + 2 ds), ``conv_b`` (d_in + 2 ds,), ``A_log``,
     ``D``, ``dt_bias`` (H,), ``gn`` (d_in,), ``out_proj`` (d_in, d)."""
+
+
+def layer_specs(cfg) -> Dict[str, tuple]:
+    """Each :class:`Layer` parameter's logical spec."""
+    return {
+        "ln": (None,), "in_proj": ("fsdp", "model"),
+        "conv_w": (None, "model"), "conv_b": ("model",),
+        "A_log": (None,), "D": (None,), "dt_bias": (None,),
+        "gn": ("model",), "out_proj": ("model", "fsdp"),
+    }
 
 
 def init_layer(generator: torch.Generator, cfg) -> Layer:
@@ -147,16 +158,21 @@ def layer_apply(p: Layer, x: torch.Tensor, cfg,
     Cc = conv_out[..., d_in + ds:].float()
     dt = F.softplus(dt.float() + p.dt_bias)
     a = -torch.exp(p.A_log)
-    xh = xin.float().reshape(B, T, H, cfg.ssm.head_dim)
+    xh = sharding.split_last(xin.float(), H, cfg.ssm.head_dim)
     if state is not None:
-        y, h_final = _ssd_scan(xh, Bc, Cc, dt, a, state["h"].float())
+        y, h_final = sharding.batch_local(
+            lambda xh, Bc, Cc, dt, h, a: _ssd_scan(xh, Bc, Cc, dt, a, h),
+            (xh, Bc, Cc, dt, state["h"].float()), a)
     else:
         h0 = torch.zeros((B, H, cfg.ssm.head_dim, ds), dtype=torch.float32,
                          device=x.device)
-        y, h_final = _ssd_chunked(xh, Bc, Cc, dt, a, h0)
+        y, h_final = sharding.batch_local(
+            lambda xh, Bc, Cc, dt, h, a: _ssd_chunked(xh, Bc, Cc, dt, a, h),
+            (xh, Bc, Cc, dt, h0), a)
     y = y + p.D[None, None, :, None] * xh
-    y = y.reshape(B, T, d_in).to(x.dtype) * F.silu(z)
-    out = L.rms_norm(y, p.gn) @ p.out_proj
+    y = sharding.merge_last(y).to(x.dtype) * F.silu(z)
+    out = sharding.constrain(L.rms_norm(y, p.gn) @ p.out_proj, "batch",
+                             None, None)
     older = (prev if prev is not None else torch.zeros(
         (B, cw - 1, conv_in.shape[-1]), dtype=conv_in.dtype,
         device=x.device))
@@ -169,3 +185,9 @@ def state_spec(cfg, batch: int) -> Dict:
     d_in, H, ds, cw = dims(cfg)
     return {"conv": ((batch, cw - 1, d_in + 2 * ds), L.DEFAULT_DTYPE),
             "h": ((batch, H, cfg.ssm.head_dim, ds), torch.float32)}
+
+
+def state_specs(cfg) -> Dict[str, tuple]:
+    """Logical specs of :func:`state_spec`'s tensors."""
+    return {"conv": ("batch", None, "model"),
+            "h": ("batch", "model", None, None)}

@@ -30,10 +30,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import sharding, transformer
 
 DDLERP_DIM = 32
 DECAY_LORA_DIM = 64
@@ -53,6 +52,31 @@ class Layer(L.Weights):
     ``w_lora_a`` (d, 64), ``w_lora_b`` (64, d), ``u`` (d,), ``wr``, ``wk``,
     ``wv``, ``wg``, ``wo`` (d, d), ``gn`` (d,), ``cm_mu_k``, ``cm_mu_r``
     (d,), ``cm_wk`` (d, ff), ``cm_wv`` (ff, d), ``cm_wr`` (d, d)."""
+
+
+def layer_specs(cfg) -> Dict[str, tuple]:
+    """Each :class:`Layer` parameter's logical spec."""
+    return {
+        "ln1": (None,), "ln2": (None,), "mu_x": (None,), "mu": (None, None),
+        "ddlerp_a": (None, None), "ddlerp_b": (None, None, None),
+        "w0": (None,), "w_lora_a": (None, None), "w_lora_b": (None, None),
+        "u": (None,),
+        "wr": ("fsdp", "model"), "wk": ("fsdp", "model"),
+        "wv": ("fsdp", "model"), "wg": ("fsdp", "model"),
+        "wo": ("model", "fsdp"), "gn": (None,),
+        "cm_mu_k": (None,), "cm_mu_r": (None,),
+        "cm_wk": ("fsdp", "model"), "cm_wv": ("model", "fsdp"),
+        "cm_wr": ("fsdp", "model"),
+    }
+
+
+def param_specs(cfg) -> Dict[str, tuple]:
+    """Every parameter's logical spec, keyed by its name in
+    ``named_parameters()``."""
+    return {"embed": (None, "model"),
+            **transformer.stacked_specs("layers", cfg.n_layers,
+                                        layer_specs(cfg)),
+            "final_norm": (None,), "head": ("fsdp", "model")}
 
 
 def init_layer(generator: torch.Generator, cfg) -> Layer:
@@ -105,7 +129,10 @@ def _ddlerp(p: Layer, x: torch.Tensor, xx: torch.Tensor
     dd = torch.tanh(base.float() @ p.ddlerp_a)
     dds = torch.einsum("btk,ikd->ibtd", dd, p.ddlerp_b)
     mixed = x[None] + dx[None] * (p.mu[:, None, None, :] + dds).to(x.dtype)
-    return tuple(mixed.unbind(0))
+    # Under a mesh each lerp's gradient comes back reduced (a partial sum
+    # would reach the LoRA's product with the sequence sharded).
+    return tuple(sharding.constrain(m, "batch", None, None)
+                 for m in mixed.unbind(0))
 
 
 def _wkv_scan(r, k, v, w, u, dh: int,
@@ -186,21 +213,25 @@ def time_mix(p: Layer, x: torch.Tensor, cfg, state: Optional[Dict] = None
     g = F.silu(xg @ p.wg)
 
     def heads(t):
-        return t.float().reshape(B, T, H, dh)
+        return sharding.split_last(t.float(), H, dh)
     u = p.u.reshape(H, dh)
     rh, kh, vh, wh = heads(r), heads(k), heads(v), heads(w)
     if state is not None:          # decode: exact steps from carried state
-        o, S = _wkv_scan(rh, kh, vh, wh, u, dh, state["wkv"].float())
+        o, S = sharding.batch_local(
+            lambda r, k, v, w, s0, u: _wkv_scan(r, k, v, w, u, dh, s0),
+            (rh, kh, vh, wh, state["wkv"].float()), u)
     elif SEQ_MODE["mode"] == "chunked":
-        o, S = _wkv_chunked(rh, kh, vh, wh, u, dh, SEQ_MODE["chunk"])
+        o, S = sharding.batch_local(_wkv_chunked, (rh, kh, vh, wh), u, dh,
+                                    SEQ_MODE["chunk"])
     else:
-        o, S = _wkv_scan(rh, kh, vh, wh, u, dh)
+        o, S = sharding.batch_local(_wkv_scan, (rh, kh, vh, wh), u, dh)
     # Per-head group norm.
     mean = o.mean(-1, keepdim=True)
     var = o.var(-1, keepdim=True, correction=0)
     o = (o - mean) * torch.rsqrt(var + 1e-5)
-    o = o.reshape(B, T, d) * (1.0 + p.gn)
-    return (o.to(x.dtype) * g) @ p.wo, S, x[:, -1]
+    o = sharding.merge_last(o) * (1.0 + p.gn)
+    out = sharding.constrain((o.to(x.dtype) * g) @ p.wo, "batch", None, None)
+    return out, S, x[:, -1]
 
 
 def channel_mix(p: Layer, x: torch.Tensor, state: Optional[Dict] = None
@@ -211,7 +242,8 @@ def channel_mix(p: Layer, x: torch.Tensor, state: Optional[Dict] = None
     xr = x + dx * p.cm_mu_r.to(x.dtype)
     kk = F.relu(xk @ p.cm_wk)
     kk = kk * kk
-    return torch.sigmoid(xr @ p.cm_wr) * (kk @ p.cm_wv), x[:, -1]
+    out = torch.sigmoid(xr @ p.cm_wr) * (kk @ p.cm_wv)
+    return sharding.constrain(out, "batch", None, None), x[:, -1]
 
 
 def layer_apply(p: Layer, x: torch.Tensor, cfg,
@@ -230,17 +262,22 @@ def hidden(params: transformer.Transformer, cfg, batch: Dict,
            remat: bool = True) -> torch.Tensor:
     """Full-sequence forward up to the final norm; with ``remat`` and grad
     enabled each layer is recomputed in the backward."""
-    x = transformer._gather_embed(params, batch["tokens"])
+    x = _embed(params, batch)
     remat = remat and torch.is_grad_enabled()
     for layer in params.layers:
-        x = (checkpoint(_layer_out, layer, x, cfg, use_reentrant=False)
-             if remat else _layer_out(layer, x, cfg))
+        x = (L.remat(_layer_out, layer, x, cfg) if remat
+             else _layer_out(layer, x, cfg))
     return L.rms_norm(x, params.final_norm)
+
+
+def _embed(params: transformer.Transformer, batch: Dict) -> torch.Tensor:
+    x = transformer._gather_embed(params, batch["tokens"])
+    return sharding.constrain(x, "batch", None, None)
 
 
 def forward(params: transformer.Transformer, cfg, batch: Dict,
             remat: bool = True) -> torch.Tensor:
-    return hidden(params, cfg, batch, remat) @ params.head
+    return transformer._logits(hidden(params, cfg, batch, remat), params)
 
 
 STATE = ("wkv", "tm_shift", "cm_shift")
@@ -250,7 +287,7 @@ def prefill(params: transformer.Transformer, cfg, batch: Dict,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
     """The last position's logits (B, 1, V) and the decode state, O(1) in
     the sequence length (``max_len`` is not needed)."""
-    x = transformer._gather_embed(params, batch["tokens"])
+    x = _embed(params, batch)
     states = []
     for layer in params.layers:
         x, st = layer_apply(layer, x, cfg)
@@ -258,14 +295,14 @@ def prefill(params: transformer.Transformer, cfg, batch: Dict,
     cache = {n: torch.stack([st[n] for st in states]) for n in STATE}
     cache["index"] = x.shape[1]
     x = L.rms_norm(x, params.final_norm)
-    return x[:, -1:] @ params.head, cache
+    return transformer._logits(x[:, -1:], params), cache
 
 
 def decode_step(params: transformer.Transformer, cfg, batch: Dict,
                 cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """One token from the carried state, which is updated in place;
     returns logits (B, 1, V) and the cache with ``index + 1``."""
-    x = transformer._gather_embed(params, batch["tokens"])
+    x = _embed(params, batch)
     for i, layer in enumerate(params.layers):
         x, st = layer_apply(layer, x, cfg,
                             state={n: cache[n][i] for n in STATE})
@@ -274,7 +311,7 @@ def decode_step(params: transformer.Transformer, cfg, batch: Dict,
     x = L.rms_norm(x, params.final_norm)
     new_cache = {n: cache[n] for n in STATE}
     new_cache["index"] = int(cache["index"]) + 1
-    return x @ params.head, new_cache
+    return transformer._logits(x, params), new_cache
 
 
 def cache_spec(cfg, batch: int, max_len: int) -> Dict:
@@ -285,3 +322,11 @@ def cache_spec(cfg, batch: int, max_len: int) -> Dict:
             "tm_shift": ((n, batch, d), L.DEFAULT_DTYPE),
             "cm_shift": ((n, batch, d), L.DEFAULT_DTYPE),
             "index": ((), torch.int64)}
+
+
+def cache_specs(cfg, seq_axes=("model",)) -> Dict:
+    """Logical specs of :func:`cache_spec`'s tensors (the state is O(1) in
+    the sequence, so ``seq_axes`` is not read)."""
+    return {"wkv": (None, "batch", None, None, None),
+            "tm_shift": (None, "batch", None),
+            "cm_shift": (None, "batch", None), "index": ()}

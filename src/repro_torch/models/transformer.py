@@ -18,7 +18,14 @@ this module's :class:`Block`.
 Parameters are created with ``requires_grad=False``, so serving builds no
 graph; :func:`trainable` turns grad on for training.  :func:`hidden` runs
 each block under :func:`torch.utils.checkpoint.checkpoint` when grad is
-enabled (the reference's default full remat per layer).
+enabled, with the remat policy of :func:`layers.set_remat_policy` (the
+reference's default is full remat per layer).
+
+:func:`param_specs` gives every parameter's logical sharding keyed by its
+name in ``named_parameters()`` (a layer's spec is the reference's stacked
+spec without its leading None), :func:`cache_specs` the decode cache's;
+the reference's sharding constraints stand at its sites, no-ops without a
+mesh.
 """
 from __future__ import annotations
 
@@ -26,9 +33,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding
 
 
 FAMILIES = ("dense", "moe", "vlm", "audio")
@@ -68,6 +75,40 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.head = nn.Parameter(head, requires_grad=False)
+
+
+def layer_specs(cfg) -> Dict[str, tuple]:
+    """Each :class:`Block` parameter's logical spec, keyed by its name in
+    the block."""
+    specs = {f"attn.{k}": v for k, v in L.attention_specs(cfg).items()}
+    specs.update({"ln1": (None,), "ln2": (None,)})
+    ffn, ffn_specs = (("moe", L.moe_specs(cfg)) if cfg.moe is not None
+                      else ("mlp", L.mlp_specs(cfg)))
+    specs.update({f"{ffn}.{k}": v for k, v in ffn_specs.items()})
+    return specs
+
+
+def stacked_specs(prefix: str, n: int, specs: Dict[str, tuple]
+                  ) -> Dict[str, tuple]:
+    """``specs`` of each of ``n`` stacked modules, named
+    ``prefix.<i>.<name>``."""
+    return {f"{prefix}.{i}.{k}": v for i in range(n)
+            for k, v in specs.items()}
+
+
+def param_specs(cfg) -> Dict[str, tuple]:
+    """Every parameter's logical spec, keyed by its name in
+    ``named_parameters()``."""
+    return {"embed": (None, "model"),
+            **stacked_specs("layers", cfg.n_layers, layer_specs(cfg)),
+            "final_norm": (None,), "head": ("fsdp", "model")}
+
+
+def kv_cache_spec(seq_axes=("model",)) -> tuple:
+    """A stacked (L, B, S, Hkv, dh) cache's logical spec: the sequence on
+    ``seq_axes``."""
+    return (None, "batch", seq_axes if len(seq_axes) > 1 else seq_axes[0],
+            None, None)
 
 
 def trainable(params: nn.Module) -> nn.Module:
@@ -118,7 +159,7 @@ def _layer_apply(block: Block, x: torch.Tensor, cfg,
 
 def _gather_embed(params: Transformer, tokens) -> torch.Tensor:
     tokens = torch.as_tensor(tokens, device=params.embed.device)
-    return params.embed[tokens.long()]
+    return sharding.sharded_embed_lookup(params.embed, tokens)
 
 
 def _embeds(params: Transformer, batch: Dict) -> torch.Tensor:
@@ -132,13 +173,18 @@ def _embed_input(params: Transformer, cfg, batch: Dict) -> torch.Tensor:
     """The input activation stream of any input modality."""
     check_family(cfg)
     if cfg.family == "audio":
-        return _embeds(params, batch)
-    tok_emb = _gather_embed(params, batch["tokens"])
-    if cfg.family == "vlm":
-        emb = _embeds(params, batch)
-        dt = torch.promote_types(emb.dtype, tok_emb.dtype)
-        return torch.cat([emb.to(dt), tok_emb.to(dt)], dim=1)
-    return tok_emb
+        x = _embeds(params, batch)
+    else:
+        x = _gather_embed(params, batch["tokens"])
+        if cfg.family == "vlm":
+            emb = _embeds(params, batch)
+            dt = torch.promote_types(emb.dtype, x.dtype)
+            x = torch.cat([emb.to(dt), x.to(dt)], dim=1)
+    return sharding.constrain_residual(x)
+
+
+def _logits(x: torch.Tensor, params) -> torch.Tensor:
+    return sharding.constrain(x @ params.head, "batch", None, "model")
 
 
 def _prefix_len(cfg) -> int:
@@ -161,8 +207,7 @@ def hidden(params: Transformer, cfg, batch: Dict,
     remat = remat and torch.is_grad_enabled()
     for block in params.layers:
         if remat:
-            x = checkpoint(_block_out, block, x, cfg, positions, prefix_len,
-                           use_reentrant=False)
+            x = L.remat(_block_out, block, x, cfg, positions, prefix_len)
         else:
             x = _block_out(block, x, cfg, positions, prefix_len)
     return L.rms_norm(x, params.final_norm)
@@ -171,7 +216,7 @@ def hidden(params: Transformer, cfg, batch: Dict,
 def forward(params: Transformer, cfg, batch: Dict,
             remat: bool = True) -> torch.Tensor:
     """Full-sequence forward; returns logits (B, T, V)."""
-    return hidden(params, cfg, batch, remat) @ params.head
+    return _logits(hidden(params, cfg, batch, remat), params)
 
 
 def prefill(params: Transformer, cfg, batch: Dict,
@@ -186,7 +231,8 @@ def prefill(params: Transformer, cfg, batch: Dict,
     shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
     # k's dtype: a bf16 frame stream against float32 weights gives float32.
     dtype = torch.promote_types(x.dtype, params.layers[0].attn.wk.dtype)
-    ks = torch.zeros(shape, dtype=dtype, device=x.device)
+    ks = sharding.zeros(shape, (None, "batch", None, None, None), dtype,
+                        x.device)
     vs = torch.zeros_like(ks)
     for i, block in enumerate(params.layers):
         x, kv = _layer_apply(block, x, cfg, positions, prefix_len)
@@ -194,7 +240,7 @@ def prefill(params: Transformer, cfg, batch: Dict,
         vs[i, :, :T] = kv["v"]
     cache = {"k": ks, "v": vs, "index": T}
     x = L.rms_norm(x, params.final_norm)
-    return x[:, -1:] @ params.head, cache
+    return _logits(x[:, -1:], params), cache
 
 
 def decode_step(params: Transformer, cfg, batch: Dict, cache: Dict
@@ -206,6 +252,7 @@ def decode_step(params: Transformer, cfg, batch: Dict, cache: Dict
     check_family(cfg)
     x = (_embeds(params, batch) if cfg.family == "audio"
          else _gather_embed(params, batch["tokens"]))
+    x = sharding.constrain(x, "batch", None, None)
     idx = int(cache["index"])
     positions = torch.full((x.shape[0], 1), idx, dtype=torch.int64,
                            device=x.device)
@@ -215,7 +262,7 @@ def decode_step(params: Transformer, cfg, batch: Dict, cache: Dict
                                    "index": idx})
     x = L.rms_norm(x, params.final_norm)
     new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + 1}
-    return x @ params.head, new_cache
+    return _logits(x, params), new_cache
 
 
 def cache_spec(cfg, batch: int, max_len: int) -> Dict:
@@ -223,3 +270,10 @@ def cache_spec(cfg, batch: int, max_len: int) -> Dict:
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": (shape, L.DEFAULT_DTYPE), "v": (shape, L.DEFAULT_DTYPE),
             "index": ((), torch.int64)}
+
+
+def cache_specs(cfg, seq_axes=("model",)) -> Dict:
+    """Logical specs of :func:`cache_spec`'s tensors: the reference's
+    ``cache_spec`` specs."""
+    kv = kv_cache_spec(seq_axes)
+    return {"k": kv, "v": kv, "index": ()}

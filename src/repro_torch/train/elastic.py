@@ -10,7 +10,8 @@
 * ``Prefetcher`` -- the next batch is materialized while the current step
   runs (double buffering).
 
-``remesh`` (moving a state onto new shardings) waits for the launch slice.
+* ``remesh`` -- elastic rescale: every :class:`DTensor` of a state
+  redistributed onto new placements (possibly on a new mesh).
 """
 from __future__ import annotations
 
@@ -100,3 +101,43 @@ class FaultTolerantTrainer:
                 step = self._restore()
         checkpoint.save(self.state, self.ckpt_dir, step)
         return self.state
+
+
+def remesh(state: Any, layouts: Any) -> Any:
+    """Elastic rescale: the state with every tensor moved onto its layout.
+
+    ``layouts`` mirrors ``state``'s dicts, with a module's parameters
+    keyed by name (as :func:`~repro_torch.train.train_loop.train_state_specs`
+    keys them); each leaf is a ``(mesh, placements)`` pair.  A
+    :class:`DTensor` on the same mesh is redistributed, one on another mesh
+    gathered and distributed anew, a plain tensor distributed; a module's
+    parameters are replaced in place (their ``requires_grad`` kept) and
+    the module is returned.  Entries without a layout stay as they are.
+    """
+    from torch import nn
+    if isinstance(state, nn.Module):
+        for name, p in list(state.named_parameters()):
+            if name not in layouts:
+                continue
+            owner, _, attr = name.rpartition(".")
+            module = state.get_submodule(owner) if owner else state
+            setattr(module, attr, nn.Parameter(
+                _moved(p.detach(), *layouts[name]),
+                requires_grad=p.requires_grad))
+        return state
+    if isinstance(state, dict):
+        return {k: remesh(v, layouts[k]) if k in layouts else v
+                for k, v in state.items()}
+    return _moved(state, *layouts)
+
+
+def _moved(x, mesh, placements):
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(x, DTensor):
+        if x.device_mesh == mesh:
+            return x.redistribute(mesh, placements)
+        x = x.full_tensor()
+    if not isinstance(x, torch.Tensor):
+        return x
+    return distribute_tensor(x, mesh, placements)

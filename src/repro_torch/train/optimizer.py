@@ -76,9 +76,10 @@ def init_opt_state(params, cfg: OptimizerConfig) -> Dict:
     dt = state_dtype(cfg)
     leaves = named(params)
     device = next(iter(leaves.values())).device
-    return {"m": {n: torch.zeros(p.shape, dtype=dt, device=p.device)
+    # zeros_like: a sharded parameter's moments are sharded as it is.
+    return {"m": {n: torch.zeros_like(p, dtype=dt, requires_grad=False)
                   for n, p in leaves.items()},
-            "v": {n: torch.zeros(p.shape, dtype=dt, device=p.device)
+            "v": {n: torch.zeros_like(p, dtype=dt, requires_grad=False)
                   for n, p in leaves.items()},
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 

@@ -7,12 +7,15 @@ function.  The state is ``{"params": module, "opt": optimizer state}`` (plus
 ``"ef_residual"`` with compression); the step updates it in place and
 returns it, as the reference's launcher donates it to the jitted step.  The
 gradients come from :func:`torch.autograd.grad` of ``model.loss_fn``, so
-parameters' ``.grad`` fields are never written.  ``train_state_specs`` waits
-for the launch slice.
+parameters' ``.grad`` fields are never written.  :func:`train_state_specs`
+gives the state's logical shardings (the parameters' specs keyed by name,
+for the moments too).  On a mesh, microbatches split each device's own
+rows of the batch (:func:`_split`).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -40,12 +43,42 @@ def init_train_state(model: ModelBundle, generator: torch.Generator,
     return state
 
 
+def train_state_specs(model: ModelBundle,
+                      options: Optional[TrainOptions] = None) -> Dict:
+    pspecs = model.param_specs()
+    specs = {"params": pspecs,
+             "opt": {"m": pspecs, "v": pspecs, "step": ()}}
+    if options and options.compress_grads:
+        specs["ef_residual"] = pspecs
+    return specs
+
+
 def _split(x, n: int) -> list:
+    """``n`` microbatches of ``x``'s rows.  A :class:`DTensor` whose rows
+    are sharded splits each device's own rows, so no row moves between
+    devices; where a microbatch is smaller than the devices sharding the
+    rows, the leading ones among them gather first (a microbatch is then
+    replicated over them)."""
     b = x.shape[0]
     if b % n:
         raise ValueError(f"a batch of {b} does not split into {n} "
                          f"microbatches")
-    return [x[i * (b // n):(i + 1) * (b // n)] for i in range(n)]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return [x[i * (b // n):(i + 1) * (b // n)] for i in range(n)]
+    mesh, pl = x.device_mesh, list(x.placements)
+    rows = [i for i, p in enumerate(pl) if p == Shard(0)]
+    while rows and (b // n) % math.prod(mesh.size(i) for i in rows):
+        pl[rows.pop(0)] = Replicate()
+    if pl != list(x.placements):
+        x = x.redistribute(mesh, pl)
+    local = x.to_local()
+    step = local.shape[0] // n
+    return [DTensor.from_local(local[i * step:(i + 1) * step], mesh, pl,
+                               run_check=False,
+                               shape=(b // n,) + tuple(x.shape[1:]),
+                               stride=x.stride())
+            for i in range(n)]
 
 
 def build_train_step(model: ModelBundle, opt_cfg: opt.OptimizerConfig,
@@ -71,7 +104,7 @@ def build_train_step(model: ModelBundle, opt_cfg: opt.OptimizerConfig,
             parts = {k: _split(x, n_micro) for k, x in batch.items()}
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=model.device)
-            grads = {n: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+            grads = {n: torch.zeros_like(p, dtype=acc_dt)
                      for n, p in params.named_parameters()}
             for i in range(n_micro):
                 loss, g = value_and_grad(

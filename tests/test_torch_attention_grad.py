@@ -10,8 +10,8 @@ block, ``kv_valid_len`` 0, ``q_offset``, non-causal with ``kv_valid_len``,
 GQA groups of 1, 2 and 4, and ragged T, in float32 and bfloat16 (against
 ``repro`` in bfloat16 at one case).  ``repro``'s gradients are computed in
 one jitted function for every case: one compile instead of one per case.
-``FlashAttentionFn`` on CPU tensors must give the plain gradients and count
-no launch.  The backward's route (tensor cores or scalar) is chosen from
+The ``repro_torch::flash_attention`` operator's autograd formula on CPU
+tensors must give the plain gradients and count no launch.  The backward's route (tensor cores or scalar) is chosen from
 its eight operands' dtype, head dim, strides and base addresses, as the
 forward's is; on CPU tensors the wrapper counts nothing on either route.
 
@@ -142,7 +142,7 @@ def test_function_on_cpu_gives_the_plain_gradients_and_counts_nothing(
     fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out = L.flash_attention(*leaves, **kw)
-    assert out.grad_fn is not None and "FlashAttentionFn" in type(
+    assert out.grad_fn is not None and "repro_torch_flash_attention" in type(
         out.grad_fn).__name__
     got = torch.autograd.grad(out, leaves, dout)
     want = ref.flash_attention_bwd(q, k, v, out.detach(), dout, **kw)

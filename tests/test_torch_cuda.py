@@ -1763,6 +1763,77 @@ def test_smoke_train_step_on_the_card_equals_the_cpu(cuda_device):
     assert losses[1] == pytest.approx(losses[3], rel=1e-5)
 
 
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
+                                         (torch.float32, "scalar")])
+def test_flash_operators_launch_the_kernels_on_their_routes(cuda_device,
+                                                            dtype, route):
+    """The dispatcher's operators launch the kernels on the route
+    ``_route`` picks; fake tensors reach only the shape functions."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fref
+    g = torch.Generator(cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(2, 128, h, 64, generator=g, device=cuda_device,
+                           dtype=dtype).requires_grad_()
+               for h in (4, 2, 2))
+    fwd = fa.flash_attention.launches_by_route[route]
+    bwd = fa.flash_attention_bwd.launches_by_route[route]
+    out = torch.ops.repro_torch.flash_attention(q, k, v, True, 0, None, 0,
+                                                None)
+    out.float().sum().backward()
+    assert fa.flash_attention.launches_by_route[route] == fwd + 1
+    assert fa.flash_attention_bwd.launches_by_route[route] == bwd + 1
+    want = fref.flash_attention(q.detach(), k.detach(), v.detach())
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert torch.allclose(out.detach().float(), want.float(), atol=tol,
+                          rtol=tol)
+    launches = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    with FakeTensorMode():
+        fq, fk = (torch.empty(2, 128, h, 64, device=cuda_device, dtype=dtype,
+                              requires_grad=True) for h in (4, 2))
+        fout = fa.flash_attention(fq, fk, fk)
+        fout.sum().backward()
+        assert fout.shape == fq.shape and fk.grad.shape == fk.shape
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_bwd.launches) == launches
+
+
+def test_op_cost_of_a_card_train_step_equals_its_count_on_fake_tensors(
+        cuda_device):
+    """One bf16 train step of qwen3's smoke config counted by ``OpCost``
+    on the card and on fake CUDA tensors: equal FLOPs, bytes and calls,
+    and the counted flash calls are the kernels' launches."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models import build_model
+    from repro_torch.train import (OptimizerConfig, build_train_step,
+                                   init_train_state)
+    cfg = get_arch("qwen3-1.7b", smoke=True)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 64))
+    records = []
+    for fake in (False, True):
+        ctx = FakeTensorMode() if fake else torch.no_grad()
+        with ctx:
+            model = build_model(cfg, device=cuda_device)
+            state = init_train_state(
+                model, torch.Generator(cuda_device).manual_seed(0),
+                OptimizerConfig())
+            batch = {"tokens": torch.tensor(toks, device=cuda_device),
+                     "targets": torch.tensor(np.roll(toks, -1, 1),
+                                             device=cuda_device)}
+            step = build_train_step(model, OptimizerConfig())
+            fwd = fa.flash_attention.launches
+            with torch.enable_grad(), OpCost() as c:
+                step(state, batch)
+            records.append((c.record(), fa.flash_attention.launches - fwd))
+    (real, launched), (fake_rec, fake_launched) = records
+    assert fake_rec == real
+    assert real["calls"]["repro_torch.flash_attention"] == launched
+    assert launched == 2 * cfg.n_layers and fake_launched == 0
+
+
 # ---------------------------------------------------------------------------
 # The VLM, audio, MoE, SSM and hybrid families
 # ---------------------------------------------------------------------------
